@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (spark_rapids_jni_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, and drives one Spark stage end to end on the card.
+PyTorch version, drives a Spark stage end to end on the card, and scans
+NDS-shaped Parquet files on the card for q5-lite.
 
-    python3 chip_smoke.py [--seed 0] [--rows 16777216] [--string-rows 4194304]
+    python3 chip_smoke.py [--seed 0] [--rows 16777216]
+        [--string-rows 4194304] [--fact-rows 16777216]
 
 Phases (any failed check raises, and the script exits non-zero):
 
-1. build    compile kernels/csrc/row_wire.cu with nvcc for sm_90a.
+1. build    compile kernels/csrc/row_wire.cu and parquet_decode.cu with
+            nvcc for sm_90a, both at once.
 2. kernels  K1 interleave_planes and K2 deinterleave_wire against their
             plain versions, bit-exact, at the stage's shape (2^24 rows of
             12 words), at 2 and 64 words, and at a row count that is not a
@@ -26,6 +29,29 @@ Phases (any failed check raises, and the script exits non-zero):
 4. strings  INT64 + STRING (4..20 lowercase letters) round trip at 2^22
             rows, bit-exact, and the bytes of a 64k-row slice against a
             numpy packer of the variable-width contract.
+5. files    the script's own numpy Parquet writer (the card's host has no
+            pyarrow) writes NDS store_sales (2^24 rows in 2^20-row groups,
+            snappy; dictionary date and store keys, PLAIN quantity, price
+            and profit, 2% and 3% nulls), date_dim (73,049 rows) and store
+            (402 rows with STRING names).
+6. decode   every row group of store_sales by the device route
+            (plan_device_group -> to_device -> decode_table, under
+            torch.cuda.set_sync_debug_mode("error")) and the host route,
+            bit-exact against each other and the written values; then a
+            2^20-row matrix (uncompressed / snappy literal-only / snappy
+            with copies x plain / dict x int32, int64, float32, float64,
+            bool x no / sparse nulls).  Plan, decode and host-route times,
+            link bytes, and a profile of one group's decode.
+7. decode_kernels  K3 plain_gather on its own (blk, 512) -> (blk, 128)
+            contract and on the page planes decode_table gives it (4 and
+            8 bytes, with nulls); W1 snappy_walk and W2 hybrid_walk on
+            literal-only, copy-bearing, def-level and dictionary pages.
+            Bit-exact against the plain versions, timed.
+8. q5       q5-lite over the three files for the year 2000 (footer pruning
+            engages), by the device route and by the host route, twice
+            each (cold, warm), against a numpy oracle (counts exact, sums
+            within rel 1e-9); the K3/W1/W2 launch counters are zeroed
+            before the warm device run and must be above zero after it.
 
 Output: one JSON line per phase, the card's name and power limit as
 nvidia-smi reports them, a {"kernels": [...]} line, and last
@@ -39,7 +65,9 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -84,6 +112,44 @@ def wall(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+TRACED = ("decode_table", "left_semi_join", "groupby", "inner_join",
+          "xxhash64")  # the port's record_function ranges on q5's path
+
+
+def profile_top(torch, fn, top: int = 10) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the summed
+    device time of its kernels and copies, their ratio (the device busy
+    share; the profiler's own cost is in the wall), the kernels with the
+    most device time, and the device time under each traced range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e, total=False):
+        name = "device_time_total" if total else "self_device_time_total"
+        return getattr(e, name, getattr(e, name.replace("device", "cuda"),
+                                        0))
+    ev = prof.key_averages()
+    # device-side events are kernels and copies, plus a GPU mirror of each
+    # record_function range, which bears the range's (CPU-side) name
+    ranges = {e.key for e in ev if e.device_type == DeviceType.CPU}
+    kern = sorted((e for e in ev if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges), key=dev_us, reverse=True)
+    device_ms = sum(dev_us(e) for e in kern) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "top_kernels": [[e.key[:60], dev_us(e) / 1e3, e.count]
+                            for e in kern[:top]],
+            "ranges": {e.key: [dev_us(e, True) / 1e3, e.count]
+                       for e in ev if e.key in TRACED}}
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -383,13 +449,750 @@ def phase_strings(torch, port, n: int, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5. files: a small Parquet writer in numpy (the card's host has no pyarrow)
+# ---------------------------------------------------------------------------
+
+# parquet.thrift ids
+_PHYS = {"bool": 0, "int32": 1, "int64": 2, "float32": 4, "float64": 5,
+         "string": 6}
+_ENC_PLAIN, _ENC_RLE, _ENC_RLE_DICT = 0, 3, 8
+_CODEC = {"none": 0, "snappy": 1}
+PAGE_BYTES = 1 << 20  # largest uncompressed data page
+SNAPPY_FRAGMENT = 1 << 16  # snappy compresses 64 KiB fragments
+COPY_BLOCK = 64
+
+
+def _uvarint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def rle_hybrid_encode(values: np.ndarray, bw: int) -> bytes:
+    """Parquet's RLE/bit-packed hybrid of ``values`` (ints < 2^bw): runs of
+    whole 8-value groups that repeat one value become RLE runs, every other
+    stretch of groups one bit-packed run (the last group zero-padded)."""
+    n = len(values)
+    ng = -(-n // 8)
+    v = np.zeros(ng * 8, np.int64)
+    v[:n] = values
+    grp = v.reshape(ng, 8)
+    const = (grp == grp[:, :1]).all(axis=1)
+    if n % 8:
+        const[-1] = False
+    gval = grp[:, 0]
+    new = np.ones(ng, np.bool_)
+    new[1:] = (const[1:] != const[:-1]) | (const[1:] & (gval[1:] != gval[:-1]))
+    starts = np.flatnonzero(new)
+    ends = np.append(starts[1:], ng)
+    bits = ((v[:, None] >> np.arange(bw)) & 1).astype(np.uint8)
+    packed = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    bwb = (bw + 7) // 8
+    out = []
+    for g0, g1 in zip(starts.tolist(), ends.tolist()):
+        k = g1 - g0
+        if const[g0]:
+            out.append(_uvarint((8 * k) << 1))
+            out.append(int(gval[g0]).to_bytes(bwb, "little"))
+        else:
+            out.append(_uvarint((k << 1) | 1))
+            out.append(packed[g0 * bw:g1 * bw])
+    return b"".join(out)
+
+
+def snappy_encode(data: bytes, copies: bool) -> bytes:
+    """A snappy raw block of ``data``: literal tokens of at most one 64 KiB
+    fragment, plus (``copies``) a copy token wherever a 64-byte block
+    repeats an earlier block of its fragment."""
+    out = [_uvarint(len(data))]
+
+    def literal(b):
+        n = len(b) - 1
+        if n < 60:
+            out.append(bytes([n << 2]))
+        else:
+            nb = (n.bit_length() + 7) // 8
+            out.append(bytes([(59 + nb) << 2]) + n.to_bytes(nb, "little"))
+        out.append(b)
+
+    u = np.frombuffer(data, np.uint8)
+    for f0 in range(0, len(data), SNAPPY_FRAGMENT):
+        frag = data[f0:f0 + SNAPPY_FRAGMENT]
+        nb = len(frag) // COPY_BLOCK if copies else 0
+        rep = np.zeros(0, np.int64)
+        if nb > 1:
+            blocks = u[f0:f0 + nb * COPY_BLOCK].reshape(nb, COPY_BLOCK)
+            _, first, inv = np.unique(
+                np.ascontiguousarray(blocks).view(f"V{COPY_BLOCK}")[:, 0],
+                return_index=True, return_inverse=True)
+            src = first[inv.reshape(-1)]
+            rep = np.flatnonzero(src < np.arange(nb))
+            rep_src = src[rep]
+        pos = 0
+        for j, sj in zip(rep.tolist(), rep_src.tolist() if nb > 1 else []):
+            at = j * COPY_BLOCK
+            if at > pos:
+                literal(frag[pos:at])
+            off = (j - sj) * COPY_BLOCK
+            out.append(bytes([((COPY_BLOCK - 1) << 2) | 2])
+                       + off.to_bytes(2, "little"))
+            pos = at + COPY_BLOCK
+        if pos < len(frag):
+            literal(frag[pos:])
+    return b"".join(out)
+
+
+def _plain_bytes(kind: str, vals) -> bytes:
+    if kind == "bool":
+        return np.packbits(np.asarray(vals, np.uint8),
+                           bitorder="little").tobytes()
+    if kind == "string":
+        return b"".join(len(b).to_bytes(4, "little") + b for b in vals)
+    return np.ascontiguousarray(vals).tobytes()
+
+
+def _page(ptype: int, body: bytes, codec: str, copies: bool, sub: tuple):
+    """(header + compressed body) of one page."""
+    from spark_rapids_jni_tpu_torch.io import thrift as T
+    comp = snappy_encode(body, copies) if codec == "snappy" else body
+    hdr = T.encode_struct([(1, T.T_I32, ptype), (2, T.T_I32, len(body)),
+                           (3, T.T_I32, len(comp)), sub])
+    return hdr + comp
+
+
+def write_parquet(path, columns, group_rows: int, codec: str = "snappy",
+                  copies: bool = False, page_bytes: int = PAGE_BYTES) -> None:
+    """Write a flat Parquet file with V1 data pages.
+
+    ``columns``: [(name, kind, values, valid, dictionary)] with kind one of
+    int32/int64/float32/float64/bool (numpy arrays) or string (a list of
+    bytes); ``valid`` is a bool array or None (a REQUIRED column).  Nulls
+    are RLE def levels; ``dictionary`` columns write a PLAIN dictionary page
+    and RLE_DICTIONARY data pages.  Data pages hold at most ``page_bytes``
+    uncompressed; every fixed-width chunk carries min/max statistics.
+    """
+    from spark_rapids_jni_tpu_torch.io import thrift as T
+    n = len(columns[0][2])
+    buf = [b"PAR1"]
+    at = 4
+    groups = []
+    for g0 in range(0, max(n, 1), group_rows):
+        g1 = min(n, g0 + group_rows)
+        chunks, gbytes = [], 0
+        for name, kind, values, valid, dictionary in columns:
+            vals = values[g0:g1]
+            ok = None if valid is None else np.asarray(valid[g0:g1], np.bool_)
+            nn = vals if ok is None else (
+                [b for b, o in zip(vals, ok) if o] if kind == "string"
+                else vals[ok])
+            start, parts, unc = at, [], 0
+            dict_off = None
+            if dictionary:
+                dvals, idx = np.unique(nn, return_inverse=True)
+                bw = max(1, int(len(dvals) - 1).bit_length())
+                body = _plain_bytes(kind, dvals)
+                parts.append(_page(2, body, codec, copies,
+                                   (7, T.T_STRUCT, [(1, T.T_I32, len(dvals)),
+                                                    (2, T.T_I32, _ENC_PLAIN)])))
+                unc += len(body)
+                dict_off = at
+                per_value = bw + 2  # worst case: alternating short runs
+            else:
+                idx = None
+                per_value = 1 if kind == "bool" else (
+                    64 if kind == "string" else 8 * np.dtype(kind).itemsize)
+            per_row = per_value + (2 if ok is not None else 0)
+            rows_pp = max(8, (page_bytes - min(4096, page_bytes // 8)) * 8
+                          // per_row)
+            data_off = at + sum(len(p) for p in parts)
+            k = 0  # non-null values written so far
+            for p0 in range(0, g1 - g0, rows_pp):
+                p1 = min(g1 - g0, p0 + rows_pp)
+                body = b""
+                m = p1 - p0
+                if ok is not None:
+                    lv = rle_hybrid_encode(ok[p0:p1].astype(np.int64), 1)
+                    body = len(lv).to_bytes(4, "little") + lv
+                    m = int(ok[p0:p1].sum())
+                if dictionary:
+                    body += bytes([bw]) + rle_hybrid_encode(idx[k:k + m], bw)
+                else:
+                    body += _plain_bytes(kind, nn[k:k + m])
+                k += m
+                if len(body) > page_bytes:
+                    raise AssertionError("data page over its byte budget")
+                parts.append(_page(0, body, codec, copies, (5, T.T_STRUCT, [
+                    (1, T.T_I32, p1 - p0),
+                    (2, T.T_I32, _ENC_RLE_DICT if dictionary else _ENC_PLAIN),
+                    (3, T.T_I32, _ENC_RLE), (4, T.T_I32, _ENC_RLE)])))
+                unc += len(body)
+            blob = b"".join(parts)
+            buf.append(blob)
+            at += len(blob)
+            stats = None
+            if kind not in ("bool", "string") and len(nn):
+                stats = [(3, T.T_I64, 0 if ok is None else int((~ok).sum())),
+                         (5, T.T_BINARY, np.asarray(nn).max().tobytes()),
+                         (6, T.T_BINARY, np.asarray(nn).min().tobytes())]
+            encs = [_ENC_PLAIN, _ENC_RLE] + ([_ENC_RLE_DICT] if dictionary
+                                             else [])
+            meta = [(1, T.T_I32, _PHYS[kind]), (2, T.T_LIST, (T.T_I32, encs)),
+                    (3, T.T_LIST, (T.T_BINARY, [name])),
+                    (4, T.T_I32, _CODEC[codec]), (5, T.T_I64, g1 - g0),
+                    (6, T.T_I64, unc), (7, T.T_I64, len(blob)),
+                    (9, T.T_I64, data_off), (11, T.T_I64, dict_off),
+                    (12, T.T_STRUCT, stats)]
+            chunks.append([(2, T.T_I64, start), (3, T.T_STRUCT, meta)])
+            gbytes += unc
+        groups.append([(1, T.T_LIST, (T.T_STRUCT, chunks)),
+                       (2, T.T_I64, gbytes), (3, T.T_I64, g1 - g0)])
+        if n == 0:
+            break
+    schema = [[(4, T.T_BINARY, "schema"), (5, T.T_I32, len(columns))]]
+    for name, kind, _, valid, _ in columns:
+        schema.append([(1, T.T_I32, _PHYS[kind]),
+                       (3, T.T_I32, 0 if valid is None else 1),
+                       (4, T.T_BINARY, name),
+                       (6, T.T_I32, 0 if kind == "string" else None)])
+    footer = T.encode_struct([(1, T.T_I32, 1),
+                              (2, T.T_LIST, (T.T_STRUCT, schema)),
+                              (3, T.T_I64, n),
+                              (4, T.T_LIST, (T.T_STRUCT, groups))])
+    buf += [footer, len(footer).to_bytes(4, "little"), b"PAR1"]
+    with open(path, "wb") as f:
+        f.write(b"".join(buf))
+
+
+# NDS store_sales at SF100 shape (the q5 tables), cut to one Spark task's
+# input split: 2^24 fact rows in 2^20-row groups
+DATE_SK0, N_DAYS = 2450816, 1827      # ss_sold_date_sk spans 1998-2002
+DATE_DIM_SK0, DATE_DIM_ROWS = 2415022, 73049
+N_STORES = 402                       # NDS SF100 store count
+Q5_DATES = (2451545, 2451910)         # the year 2000: footer pruning engages
+Q5_COLUMNS = ["ss_sold_date_sk", "ss_store_sk", "ss_ext_sales_price",
+              "ss_net_profit"]
+STORE_SYLLABLES = ["ought", "able", "pri", "ese", "anti", "cally", "ation",
+                   "eing", "bar", "n st"]  # NDS name syllables
+MATRIX_KINDS = ["int32", "int64", "float32", "float64", "bool"]
+
+
+def fact_columns(n: int, seed: int):
+    """store_sales at NDS shape: (name, kind, values, valid, dictionary)."""
+    rng = np.random.default_rng(seed + 11)
+    date = np.sort(rng.integers(DATE_SK0, DATE_SK0 + N_DAYS, n))
+    store = rng.integers(1, N_STORES + 1, n)
+    cents = rng.integers(0, 2_000_000, n)           # 0 .. 20,000.00
+    profit = rng.integers(-500_000, 1_000_000, n)   # -5,000 .. 10,000.00
+    return [
+        ("ss_sold_date_sk", "int64", date, None, True),
+        ("ss_store_sk", "int64", store, rng.random(n) >= 0.02, True),
+        ("ss_quantity", "int32", rng.integers(1, 101, n).astype(np.int32),
+         None, False),
+        ("ss_ext_sales_price", "float64", cents / 100.0,
+         rng.random(n) >= 0.03, False),
+        ("ss_net_profit", "float64", profit / 100.0, None, False),
+    ]
+
+
+def dim_columns():
+    """date_dim (d_date_sk, d_year) and store (s_store_sk, s_store_name)."""
+    dsk = np.arange(DATE_DIM_SK0, DATE_DIM_SK0 + DATE_DIM_ROWS, dtype=np.int64)
+    dates = [("d_date_sk", "int64", dsk, None, False),
+             ("d_year", "int32", (1900 + (dsk - DATE_DIM_SK0) // 365.25)
+              .astype(np.int32), None, False)]
+    syl = STORE_SYLLABLES
+    names = [(syl[(i // 10) % 10] + syl[i % 10]).encode()
+             for i in range(N_STORES)]  # every tenth store shares a name
+    stores = [("s_store_sk", "int64", np.arange(1, N_STORES + 1), None, False),
+              ("s_store_name", "string", names, None, False)]
+    return dates, stores
+
+
+def matrix_columns(n: int, seed: int, encoding: str, nulls: str,
+                   copies: bool):
+    """One column per type; ``copies`` repeats each value 64 times so 64-byte
+    blocks repeat, ``dict`` draws from 1,000 values."""
+    rng = np.random.default_rng(seed + 17)
+    cols = []
+    for kind in MATRIX_KINDS:
+        m = -(-n // 64) if copies else n
+        if kind == "bool":
+            v = rng.random(m) < 0.5
+        elif kind.startswith("float"):
+            v = (rng.integers(-4000, 4000, m) / 4.0).astype(kind)
+        else:
+            v = rng.integers(-2**30, 2**30, m).astype(kind)
+        if encoding == "dict" and kind != "bool":
+            v = rng.choice(v[:1000], m)
+        if copies:
+            v = np.repeat(v, 64)[:n]
+        valid = None if nulls == "none" else rng.random(n) >= 0.05
+        cols.append((kind, kind, v, valid,
+                     encoding == "dict" and kind != "bool"))
+    return cols
+
+
+def head(table, n: int):
+    """The first ``n`` rows of a Table, as views (the decode output is
+    padded to its row bucket)."""
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    if table.num_rows == n:  # host chunks of strings come unpadded
+        return table
+    return Table([Column(c.dtype, data=c.data[:n],
+                         validity=None if c.validity is None
+                         else c.validity[:n]) for c in table.columns],
+                 table.names)
+
+
+def scan(path, route: str, device, info: dict, columns=None,
+         predicate=None, limit: int = 64 << 20, prefetch: int = 0):
+    """The chunks of one file by ``route``: "host" iterates the chunked
+    reader (host decode, per-column transfer); "device" takes
+    ``iter_device`` and decodes each planned group with ``decode_table``
+    (fallback groups arrive host-decoded, their reason kept in ``info``)."""
+    from spark_rapids_jni_tpu_torch.io import ParquetChunkedReader
+    from spark_rapids_jni_tpu_torch.ops.parquet_decode import decode_table
+    with ParquetChunkedReader(path, pass_read_limit=limit, columns=columns,
+                              predicate=predicate, prefetch=prefetch,
+                              device=device) as reader:
+        if route == "host":
+            for table in reader:
+                info["rows"] = info.get("rows", 0) + table.num_rows
+                yield table
+        else:
+            for kind, item, reason in reader.iter_device():
+                if kind == "dev":
+                    table, n = decode_table(item.to_device(device),
+                                            item.geom), item.nrows
+                else:
+                    (table, n) = item
+                    info.setdefault("fallbacks", []).append(
+                        (str(path).rsplit("/", 1)[-1], reason))
+                info["rows"] = info.get("rows", 0) + n
+                yield head(table, n)
+        info["groups_read"] = info.get("groups_read", 0) + reader.groups_read
+        info["groups_pruned"] = info.get("groups_pruned", 0) \
+            + reader.groups_pruned
+
+
+def q5_lite(root, route: str, device, date_lo: int, date_hi: int,
+            limit: int = 64 << 20, columns=None, prefetch: int = 0):
+    """NDS q5-lite through the port: sales, profit and count by store name
+    over a date range.  Scan date_dim and filter; chunked scan of
+    store_sales with footer pruning, per-chunk semi-join on the dates and
+    partial aggregation; combine; join the stores; aggregate by name.
+    The composition of tests/test_query_e2e.py's run_engine.
+    Returns ({name: (sales, profit, n)}, scan info)."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.io import read_parquet
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.join import (inner_join,
+                                                     left_semi_join)
+    from spark_rapids_jni_tpu_torch.ops.selection import (apply_boolean_mask,
+                                                          concat_tables)
+    root = Path(root)
+    info: dict = {}
+
+    def dim(name):
+        if route == "host":
+            return read_parquet(root / name, device=device)
+        return concat_tables(list(scan(root / name, "device", device,
+                                       info)))
+
+    dates = dim("date_dim.parquet")
+    dk = dates["d_date_sk"].data
+    dkeep = apply_boolean_mask(dates, (dk >= date_lo) & (dk <= date_hi))
+    stores = dim("store.parquet")
+    fact_info: dict = {}
+    partials = []
+    for chunk in scan(root / "store_sales.parquet", route, device, fact_info,
+                      columns, ("ss_sold_date_sk", date_lo, date_hi), limit,
+                      prefetch):
+        kept = left_semi_join(chunk, dkeep, ["ss_sold_date_sk"],
+                              ["d_date_sk"], device=device)
+        if kept.num_rows == 0:
+            continue
+        partials.append(groupby(
+            kept, ["ss_store_sk"],
+            [("ss_ext_sales_price", "sum"), ("ss_net_profit", "sum"),
+             ("ss_ext_sales_price", "count")],
+            names=["sales", "profit", "n"], device=device))
+    merged = Table.from_pydict({
+        name: sum((p[name].to_pylist() for p in partials), [])
+        for name in partials[0].names}, device=device)
+    totals = groupby(merged, ["ss_store_sk"],
+                     [("sales", "sum"), ("profit", "sum"), ("n", "sum")],
+                     names=["sales", "profit", "n"], device=device)
+    joined = inner_join(totals, stores, ["ss_store_sk"], ["s_store_sk"],
+                        device=device)
+    result = groupby(joined, ["s_store_name"],
+                     [("sales", "sum"), ("profit", "sum"), ("n", "sum")],
+                     names=["sales", "profit", "n"], device=device)
+    info.update(fact_info)
+    out = {nm: (s, p, int(n)) for nm, s, p, n in zip(
+        result["s_store_name"].to_pylist(), result["sales"].to_pylist(),
+        result["profit"].to_pylist(), result["n"].to_pylist())}
+    return out, info
+
+
+def q5_oracle(fact, dates, stores, date_lo: int, date_hi: int) -> dict:
+    """q5-lite in numpy: np.isin on the kept dates, bincount by store, the
+    store table's names, a sum by name."""
+    c = {name: (v, ok) for name, _, v, ok, _ in fact}
+    d = dates[0][2]
+    keep = np.isin(c["ss_sold_date_sk"][0], d[(d >= date_lo) & (d <= date_hi)])
+    store, sok = c["ss_store_sk"]
+    keep &= sok
+    price, pok = c["ss_ext_sales_price"]
+    profit = c["ss_net_profit"][0]
+    m = N_STORES + 1
+    sk = store[keep]
+    pv = pok[keep]
+    sales = np.bincount(sk, np.where(pv, price[keep], 0.0), m)
+    prof = np.bincount(sk, profit[keep], m)
+    cnt = np.bincount(sk[pv], minlength=m)
+    has = np.bincount(sk, minlength=m) > 0
+    out: dict = {}
+    for s_sk, name in zip(stores[0][2].tolist(), stores[1][2]):
+        if not has[s_sk]:
+            continue
+        a, b, k = out.get(name.decode(), (0.0, 0.0, 0))
+        out[name.decode()] = (a + sales[s_sk], b + prof[s_sk],
+                              k + int(cnt[s_sk]))
+    return out
+
+
+def q5_matches(got: dict, want: dict, rel: float = 1e-9) -> bool:
+    """Same names and counts; sums within ``rel`` (atomic summation order)."""
+    if set(got) != set(want):
+        return False
+    for name, (ws, wp, wn) in want.items():
+        gs, gp, gn = got[name]
+        if gn != wn or abs(gs - ws) > rel * abs(ws) or \
+                abs(gp - wp) > rel * abs(wp):
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# 6. decode: device route against host route and the written values
+# ---------------------------------------------------------------------------
+
+def _want_bytes(kind: str, values, valid) -> np.ndarray:
+    """What a decoded column must hold: the written values, zero on null
+    rows, as raw bytes."""
+    v = np.asarray(values)
+    if kind == "bool":
+        v = v.astype(np.uint8)
+    if valid is not None:
+        v = np.where(valid, v, np.zeros((), v.dtype))
+    return v.view(np.uint8)
+
+
+def check_group(torch, dev_table, host_table, nrows: int, cols, g0: int,
+                what: str) -> None:
+    """Device route == host route == the writer's values, bit for bit."""
+    for c_dev, c_host, (name, kind, values, valid, _) in zip(
+            dev_table.columns, host_table.columns, cols):
+        a = c_dev.data[:nrows].contiguous().view(torch.uint8)
+        b = c_host.data[:nrows].contiguous().view(torch.uint8)
+        check(torch.equal(a, b), f"{what} {name}: device == host route")
+        ok = None if valid is None else valid[g0:g0 + nrows]
+        want = _want_bytes(kind, values[g0:g0 + nrows], ok)
+        check(np.array_equal(a.cpu().numpy(), want),
+              f"{what} {name}: decoded == written values")
+        check((c_dev.validity is None) == (valid is None),
+              f"{what} {name}: validity present iff nullable")
+        if valid is not None:
+            check(np.array_equal(c_dev.validity[:nrows].cpu().numpy(), ok)
+                  and np.array_equal(c_host.validity[:nrows].cpu().numpy(),
+                                     ok)
+                  and not bool(c_dev.validity[nrows:].any()),
+                  f"{what} {name}: validity")
+
+
+def decode_file(torch, path, cols, what: str, timed_groups=()) -> dict:
+    """Every row group of ``path`` by both routes, checked; the plan time
+    of every group, other times for the groups in ``timed_groups``."""
+    from spark_rapids_jni_tpu_torch.io.parquet import (ParquetFile,
+                                                       plan_device_group)
+    from spark_rapids_jni_tpu_torch.ops.parquet_decode import decode_table
+    pf = ParquetFile(path)
+    out = {"groups": pf.num_row_groups, "link_bytes": 0,
+           "uncompressed_bytes": 0, "plan_ms": [], "timed": []}
+    g0 = 0
+    for gi in range(pf.num_row_groups):
+        t0 = time.perf_counter()
+        chunk, reason = plan_device_group(pf, gi, None, None, DEV)
+        plan_s = time.perf_counter() - t0
+        out["plan_ms"].append(plan_s * 1e3)
+        check(chunk is not None, f"{what} group {gi} planned ({reason})")
+        planes = chunk.to_device(DEV)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # decode_table never syncs
+        try:
+            table = decode_table(planes, chunk.geom)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host = pf.read_row_group(gi, device=DEV)
+        check_group(torch, table, host, chunk.nrows, cols, g0,
+                    f"{what} group {gi}")
+        out["link_bytes"] += chunk.comp_bytes
+        out["uncompressed_bytes"] += chunk.unc_bytes
+        if gi in timed_groups:
+            dec_ms = cuda_ms(torch, lambda: decode_table(planes, chunk.geom),
+                             iters=5, warmup=1)
+            if gi == timed_groups[0] and what == "store_sales":
+                out["profile"] = profile_top(
+                    torch, lambda: decode_table(planes, chunk.geom))
+            _, host_s = wall(torch, lambda: pf.read_row_group(gi, device=DEV))
+            out_bytes = sum(c.data[:chunk.nrows].numel()
+                            * c.data.element_size()
+                            + (chunk.nrows if c.validity is not None else 0)
+                            for c in table.columns)
+            out["timed"].append({
+                "group": gi, "rows": chunk.nrows, "plan_ms": plan_s * 1e3,
+                "link_bytes": chunk.comp_bytes,
+                "uncompressed_bytes": chunk.unc_bytes,
+                "decode_ms": dec_ms, "decode_GBps": out_bytes / dec_ms / 1e6,
+                "host_route_ms": host_s * 1e3,
+                "has_copies": [g.has_copies for g in chunk.geom.columns]})
+        g0 += chunk.nrows
+        del planes, table, host
+    return out
+
+
+def phase_decode(torch, root, fact, seed: int, matrix_rows: int) -> dict:
+    """The fact file's row groups and a codec x encoding x nulls matrix."""
+    t0 = time.perf_counter()
+    fact_out = decode_file(torch, root / "store_sales.parquet", fact,
+                           "store_sales", timed_groups=(0, 1))
+    fact_s = time.perf_counter() - t0
+    matrix = []
+    t0 = time.perf_counter()
+    for codec, copies in (("none", False), ("snappy", False),
+                          ("snappy", True)):
+        for encoding in ("plain", "dict"):
+            for nulls in ("none", "sparse"):
+                cols = matrix_columns(matrix_rows, seed, encoding, nulls,
+                                      copies)
+                path = root / f"m_{codec}{copies:d}_{encoding}_{nulls}.parquet"
+                write_parquet(path, cols, matrix_rows, codec, copies)
+                res = decode_file(torch, path, cols, path.stem,
+                                  timed_groups=(0,))
+                t = res["timed"][0]
+                matrix.append({"file": path.stem, **{
+                    k: t[k] for k in ("decode_ms", "decode_GBps",
+                                      "host_route_ms", "link_bytes",
+                                      "uncompressed_bytes", "has_copies")}})
+                path.unlink()
+    return {"phase": "decode", "fact": fact_out, "fact_s": fact_s,
+            "matrix_rows": matrix_rows, "matrix": matrix,
+            "matrix_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# 7. the decode kernels K3, W1, W2 against their plain versions
+# ---------------------------------------------------------------------------
+
+def capture_decode_calls(pqk, pqd, planes, geom) -> dict:
+    """The arguments ``decode_table`` gives each kernel wrapper, captured by
+    wrapping the wrappers for one decode (the main path's real inputs)."""
+    calls = {"plain_gather": [], "snappy_walk": [], "hybrid_walk": []}
+    saved = {name: getattr(pqk, name) for name in calls}
+
+    def wrap(name):
+        def f(*args):
+            calls[name].append(args)
+            return saved[name](*args)
+        return f
+    for name in calls:
+        setattr(pqk, name, wrap(name))
+    try:
+        pqd.decode_table(planes, geom)
+    finally:
+        for name, fn in saved.items():
+            setattr(pqk, name, fn)
+    return calls
+
+
+def _plain_ms(torch, fn, reps: int = 1) -> float:
+    _, s = wall(torch, fn)
+    for _ in range(reps - 1):
+        s = min(s, wall(torch, fn)[1])
+    return s * 1e3
+
+
+def phase_decode_kernels(torch, root, fact_path, seed: int,
+                         matrix_rows: int) -> dict:
+    """K3 on its own contract and on real page planes (4 and 8 bytes, with
+    nulls); W1 on literal-only and copy-bearing pages; W2 on def levels and
+    dictionary indices.  Bit-exact, timed (CUDA events; plain versions by
+    wall clock, the W1/W2 ones being Python loops)."""
+    from spark_rapids_jni_tpu_torch.io.parquet import (ParquetFile,
+                                                       plan_device_group)
+    from spark_rapids_jni_tpu_torch.kernels import parquet_decode as pqk
+    from spark_rapids_jni_tpu_torch.ops import parquet_decode as pqd
+
+    def err(a, b):
+        a, b = [x.cpu() for x in a], [x.cpu() for x in b]
+        return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                   if x.numel() else 0 for x, y in zip(a, b))
+
+    out = {"plain_gather": {"cases": []}, "snappy_walk": {"cases": []},
+           "hybrid_walk": {"cases": []}}
+    # K3's own contract: u8 (blk, 512) -> u32 (blk, 128), voff 0, nn arange
+    blk = 1 << 16
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    unc = torch.randint(0, 256, (blk, 512), dtype=torch.uint8, device=DEV,
+                        generator=gen)
+    voff = torch.zeros(blk, dtype=torch.int32, device=DEV)
+    nn = torch.arange(128, dtype=torch.int32, device=DEV).expand(blk, 128) \
+        .contiguous()
+    cases = [("contract (blk=2^16, 512 B)", (unc, voff, nn, 4))]
+
+    # real planes: the fact file's group 0 and a copy-bearing, nullable
+    # plain file; each wrapper's largest captured call per column
+    mcols = matrix_columns(matrix_rows, seed, "plain", "sparse", True)
+    mpath = root / "k_copies.parquet"
+    write_parquet(mpath, mcols, matrix_rows, "snappy", True)
+    walks = []
+    for path, label in ((fact_path, "store_sales"), (mpath, "copies")):
+        pf = ParquetFile(path)
+        chunk, reason = plan_device_group(pf, 0, None, None, DEV)
+        check(chunk is not None, f"{label}: planned ({reason})")
+        planes = chunk.to_device(DEV)
+        for g in chunk.geom.columns:
+            calls = capture_decode_calls(pqk, pqd, {g.name: planes[g.name]},
+                                         pqd.ChunkGeom((g,), chunk.geom.rb))
+            tag = f"{label}.{g.name}"
+            for a in calls["plain_gather"]:
+                if a[3] == 8 or (a[3] == 4 and g.max_def > 0) or \
+                        g.name == "ss_quantity":
+                    cases.append((f"{tag} size {a[3]}", a))
+            for a in calls["snappy_walk"]:
+                walks.append(("snappy_walk", tag, a))
+            for a in calls["hybrid_walk"]:
+                walks.append(("hybrid_walk", tag, a))
+    mpath.unlink()
+
+    for label, (u, vo, n_, size) in cases:
+        got = pqk.plain_gather(u, vo, n_, size)
+        want = pqk.plain_gather_plain(u, vo, n_, size)
+        torch.cuda.synchronize()
+        e = err([got], [want])
+        check(e == 0, f"K3 plain_gather bit-exact on {label}")
+        r, v = n_.shape
+        out["plain_gather"]["cases"].append({
+            "case": label, "shape": [r, v], "size": size,
+            "max_abs_err": e,
+            "ms": cuda_ms(torch, lambda: pqk.plain_gather(u, vo, n_, size)),
+            "plain_ms": cuda_ms(torch, lambda: pqk.plain_gather_plain(
+                u, vo, n_, size), iters=5, warmup=1),
+            "bound_ms": r * v * (4 + 2 * size) / HBM_BYTES_PER_S * 1e3})
+
+    seen = set()
+    for name, tag, a in walks:
+        key = (name, tag, tuple(a[0].shape))
+        if key in seen:
+            continue
+        seen.add(key)
+        fn = getattr(pqk, name)
+        plain = getattr(pqk, name + "_plain")
+        got = fn(*a)
+        want = plain(*a)
+        torch.cuda.synchronize()
+        e = err(got, want)
+        check(e == 0, f"{name} bit-exact on {tag}")
+        if name == "snappy_walk":
+            tb = a[4]
+            longest = int((got[0] < a[3]).sum(dim=1).max())
+            nbytes = a[0].numel() + 8 * a[0].shape[0] + 12 * a[0].shape[0] * tb
+        else:
+            vb = a[5]
+            longest = int((got[0] >= 0).sum(dim=1).max())
+            nbytes = a[0].numel() + 16 * a[0].shape[0] + 13 * a[0].shape[0] * vb
+        out[name]["cases"].append({
+            "case": tag, "rows": int(a[0].shape[0]), "max_abs_err": e,
+            "longest_walk": longest,
+            "ms": cuda_ms(torch, lambda: fn(*a), iters=5, warmup=1),
+            "plain_ms": _plain_ms(torch, lambda: plain(*a)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    for name, k in out.items():
+        check(k["cases"], f"{name} was checked")
+        k["max_abs_err"] = max(c["max_abs_err"] for c in k["cases"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. q5-lite over the three files, by both routes
+# ---------------------------------------------------------------------------
+
+def phase_q5(torch, root, fact, dates, stores, pqk, tracing) -> dict:
+    want = q5_oracle(fact, dates, stores, *Q5_DATES)
+    n_fact = len(fact[0][2])
+    out = {"phase": "q5", "dates": list(Q5_DATES), "fact_rows": n_fact,
+           "names": len(want)}
+    for route in ("device", "host"):
+        times = []
+        for rep in range(2):
+            if route == "device" and rep == 1:
+                tracing.reset_counters("kernel.")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, info = q5_lite(root, route, DEV, *Q5_DATES,
+                                columns=Q5_COLUMNS, prefetch=1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if route == "device" and rep == 1:
+                out["launches"] = {name: pqk.launches(name) for name in
+                                   ("plain_gather", "snappy_walk",
+                                    "hybrid_walk")}
+            check(q5_matches(got, want),
+                  f"q5-lite by the {route} route == numpy oracle")
+        out[route] = {"cold_s": times[0], "warm_s": times[1],
+                      "groups_read": info["groups_read"],
+                      "groups_pruned": info["groups_pruned"],
+                      "fallbacks": info.get("fallbacks", []),
+                      "file_rows_per_s": n_fact / times[1],
+                      "rows_read": info["rows"],
+                      "rows_read_per_s": info["rows"] / times[1]}
+    for route in ("device", "host"):
+        out[route]["profile"] = profile_top(torch, lambda: q5_lite(
+            root, route, DEV, *Q5_DATES, columns=Q5_COLUMNS, prefetch=1))
+    check(out["device"]["fallbacks"] == [("store.parquet", "physical_type")],
+          "device route: only the STRING store file falls back")
+    check(out["device"]["groups_pruned"] > 0, "footer pruning engaged")
+    for name, count in out["launches"].items():
+        check(count > 0, f"q5's device route launched {name}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def _build_all(modules) -> dict:
+    """nvcc for every CUDA source at once, one process each."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(modules)) as ex:
+        futs = {name: ex.submit(mod.build, True) for name, mod in modules}
+        return {name: f.result() for name, f in futs.items()}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=1 << 24)
     ap.add_argument("--string-rows", type=int, default=1 << 22)
+    ap.add_argument("--fact-rows", type=int, default=1 << 24)
     args = ap.parse_args()
+    # 16 row groups, so q5's footer pruning has groups to skip; the
+    # decode matrix is one group of at most 2^20 rows
+    group_rows = max(args.fact_rows // 16, 1)
+    matrix_rows = min(1 << 20, group_rows)
 
     import torch
     if not torch.cuda.is_available():
@@ -398,6 +1201,7 @@ def main() -> int:
     from spark_rapids_jni_tpu_torch.columnar import Table
     from spark_rapids_jni_tpu_torch.columnar.interop import (
         HostColumn, table_from_numpy)
+    from spark_rapids_jni_tpu_torch.kernels import parquet_decode as pqk
     from spark_rapids_jni_tpu_torch.kernels import row_wire
     from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
     from spark_rapids_jni_tpu_torch.ops.hash import murmur3_hash
@@ -409,10 +1213,12 @@ def main() -> int:
             row_wire, tracing)
 
     t0 = time.perf_counter()
-    built = row_wire.build(verbose=True)
-    ptxas = [ln.strip() for ln in built["log"].splitlines()
-             if "registers" in ln or "smem" in ln]
-    emit({"phase": "build", "seconds": built["seconds"], "ptxas": ptxas})
+    built = _build_all([("row_wire", row_wire), ("parquet_decode", pqk)])
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          **{name: {"seconds": b["seconds"],
+                    "ptxas": [ln.strip() for ln in b["log"].splitlines()
+                              if "registers" in ln or "smem" in ln]}
+             for name, b in built.items()}})
 
     kernels = phase_kernels(torch, row_wire, args.seed, args.rows)
     emit({"phase": "kernels", **kernels})
@@ -424,24 +1230,76 @@ def main() -> int:
     emit(stage)
 
     emit(phase_strings(torch, port, args.string_rows, args.seed))
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        t1 = time.perf_counter()
+        fact = fact_columns(args.fact_rows, args.seed)
+        dates, stores = dim_columns()
+        write_parquet(root / "store_sales.parquet", fact, group_rows,
+                      "snappy")
+        write_parquet(root / "date_dim.parquet", dates, 1 << 20, "snappy")
+        write_parquet(root / "store.parquet", stores, 1 << 20, "snappy")
+        emit({"phase": "files", "seconds": time.perf_counter() - t1,
+              "fact_rows": args.fact_rows, "group_rows": group_rows,
+              "bytes": {p.name: p.stat().st_size
+                        for p in sorted(root.iterdir())}})
+
+        decode = phase_decode(torch, root, fact, args.seed, matrix_rows)
+        emit(decode)
+        torch.cuda.empty_cache()
+
+        dk = phase_decode_kernels(torch, root, root / "store_sales.parquet",
+                                  args.seed, matrix_rows)
+        emit({"phase": "decode_kernels", **dk})
+        torch.cuda.empty_cache()
+
+        q5 = phase_q5(torch, root, fact, dates, stores, pqk, tracing)
+        emit(q5)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    src = "spark_rapids_jni_tpu_torch/kernels/csrc/row_wire.cu"
-    replaces = {"interleave_planes":
-                "spark_rapids_jni_tpu/ops/pallas_kernels.py:28",
-                "deinterleave_wire":
-                "spark_rapids_jni_tpu/ops/pallas_kernels.py:34"}
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "launches": stage["launches"][name],
+    pkg = "spark_rapids_jni_tpu_torch/kernels/csrc/"
+    jax_pkg = "spark_rapids_jni_tpu/ops/"
+    rows = [
+        {"name": name, "route": "cuda", "source": pkg + "row_wire.cu",
+         "replaces": jax_pkg + ref, "launches": stage["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
          "library_ms": k["library_ms"], "shape": k["shape"]}
-        for name, k in kernels.items()]})
+        for (name, k), ref in zip(kernels.items(), ("pallas_kernels.py:28",
+                                                    "pallas_kernels.py:34"))]
+    contract = dk["plain_gather"]["cases"][0]
+    rows.append({
+        "name": "plain_gather", "route": "cuda",
+        "source": pkg + "parquet_decode.cu",
+        "replaces": jax_pkg + "parquet_decode.py:336",
+        "launches": q5["launches"]["plain_gather"],
+        "max_abs_err": dk["plain_gather"]["max_abs_err"],
+        "ms": contract["ms"], "kernel_ms": contract["ms"],
+        "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_note": "no single PyTorch call gathers bytes at per-slot "
+                        "offsets and assembles words",
+        "shape": contract["shape"]})
+    for name, ref in (("snappy_walk", "parquet_decode.py:130"),
+                      ("hybrid_walk", "parquet_decode.py:247")):
+        case = max(dk[name]["cases"], key=lambda c: c["longest_walk"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": pkg + "parquet_decode.cu", "replaces": jax_pkg + ref,
+            "launches": q5["launches"][name],
+            "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
+            "kernel_ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": "serial",
+            "longest_walk": case["longest_walk"], "library_ms": None,
+            "library_note": "a serial header walk; no PyTorch call does it",
+            "case": case["case"]})
+    emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,10 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
+import torch
+
+from .. import device as _device
 from .column import Column
 
 
@@ -60,6 +64,29 @@ class Table:
     def gather(self, indices, indices_valid=None) -> "Table":
         return Table([c.gather(indices, indices_valid)
                       for c in self.columns], self.names)
+
+    @staticmethod
+    def from_pydict(d: dict, device=_device.DEFAULT) -> "Table":
+        """Table from ``{name: values}``: each value a Column, a tensor, a
+        numpy array or a Python list (None entries become nulls)."""
+        from ..dtypes import NUMPY_OF_TORCH, from_numpy_dtype
+        cols, names = [], []
+        for k, v in d.items():
+            names.append(k)
+            if isinstance(v, Column):
+                cols.append(v.to(device))
+            elif isinstance(v, torch.Tensor):
+                dtype = from_numpy_dtype(NUMPY_OF_TORCH[v.dtype])
+                cols.append(Column.fixed(dtype, v, device=device))
+            elif isinstance(v, np.ndarray):
+                cols.append(Column.from_numpy(v, device=device))
+            else:
+                cols.append(Column.from_pylist(list(v), device=device))
+        return Table(cols, names)
+
+    def to_pydict(self) -> dict:
+        names = self.names or [f"c{i}" for i in range(self.num_columns)]
+        return {n: c.to_pylist() for n, c in zip(names, self.columns)}
 
     def to(self, device) -> "Table":
         """This table with every buffer on ``device`` (a no-op where a

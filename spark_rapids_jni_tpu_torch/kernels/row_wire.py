@@ -8,9 +8,9 @@ RowConversion builds column by column and the packed-row wire
 its inverse.  Words are ``torch.int32`` tensors, bit-identical to u32.
 
 The CUDA source is ``csrc/row_wire.cu`` (its header gives the bound and the
-design).  It is compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` at
-first use, as a shared library with a plain C interface loaded through
-``ctypes``; nothing is built when this module is imported.
+design).  ``kernels/nvcc.py`` compiles it for ``sm_90a`` into ``_build/`` at
+first use and loads it through ``ctypes``; nothing is built when this module
+is imported.
 
 Each wrapper takes the plain PyTorch version only for a tensor that lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; there is no
@@ -21,84 +21,23 @@ of ``utils.tracing``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
 
 import torch
 
 from ..utils import tracing
+from . import nvcc
 
 GROUP = 32  # rows per wire group; row counts must be a multiple of it
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "row_wire.cu"
-BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the row-wire kernels need the "
-                           "CUDA toolkit to build")
-    return str(path)
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p]
+_SIGNATURES = {"srjt_interleave_planes": _ARGS,
+               "srjt_deinterleave_wire": _ARGS}
 
 
 def build(verbose: bool = False) -> dict:
-    """Compile ``csrc/row_wire.cu`` if its library is not built yet.
-
-    The library's name carries a hash of the source, so an edited source
-    builds anew.  Returns ``{"path", "seconds", "built", "log"}``; ``log``
-    holds the compiler's output (``-Xptxas -v`` when ``verbose``).
-    """
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"librow_wire_{tag}.so"
-    if out.exists() and not verbose:
-        return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees a whole file
-    return {"path": str(out), "seconds": seconds, "built": True,
-            "log": proc.stdout + proc.stderr}
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()["path"])
-            for name in ("srjt_interleave_planes", "srjt_deinterleave_wire"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_longlong, ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    """Compile ``csrc/row_wire.cu`` if needed (see ``nvcc.build``)."""
+    return nvcc.build("row_wire", verbose)
 
 
 def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, n: int,
@@ -108,13 +47,8 @@ def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, n: int,
                          f"{src.device}")
     if n == 0 or nwords == 0:
         return
-    fn = getattr(_load(), "srjt_" + name)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), dst.data_ptr(), n, nwords, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+    nvcc.launch("row_wire", _SIGNATURES, "srjt_" + name, src.device,
+                src.data_ptr(), dst.data_ptr(), n, nwords)
     tracing.count("kernel." + name)
 
 

@@ -1,0 +1,363 @@
+"""Device-side Parquet page decode: compressed page planes -> columns.
+
+The port of ``spark_rapids_jni_tpu/ops/parquet_decode.py``.  The link
+carries each column chunk's *compressed* pages as padded ``uint8`` page
+planes (``comp[P+1, CB]``, row 0 the dictionary page or zeros) plus the
+per-page byte and value counts ``clen/ulen/nv[P+1]``; ``decode_table``
+turns them into bucket-padded columns on the device.  The steps, as in the
+JAX package:
+
+- **snappy** raw-block decompression in two passes: W1 walks the token
+  headers of each page (one CUDA thread per page, ``kernels/
+  parquet_decode.py::snappy_walk``) into a compact token table; then, in
+  parallel over output bytes, a prefix count finds each byte's token (the
+  JAX package's ``cummax``) and a pointer-doubling chase resolves
+  back-references (skipped when the host's
+  token scan found no copies, ``has_copies=False``).
+- **RLE/bit-packed hybrid** streams (def levels, dictionary indices): W2
+  walks the run headers (``hybrid_walk``), then each value slot extracts
+  its bits in parallel.
+- **PLAIN** fixed-width values: K3 gathers each value's bytes at its slot
+  offset and assembles the word in one pass (``plain_gather``); BOOLEAN
+  unpacks bits in torch.  Dictionary pages go through the same K3 and the
+  data pages gather through the decoded dictionary.
+
+Everything else is plain torch: prefix sums, ``gather``, ``searchsorted``
+and scatters.  All sizes are the static buckets of :class:`ChunkGeom`,
+never read from the device, so ``decode_table`` makes no host sync.  Where
+the JAX package does 32-bit arithmetic the port does too (``int32``
+tensors, which wrap alike), and unsigned 32-bit values are held in
+``int64`` with masks, since torch on the CPU has no shifts for uint32.
+FLOAT64 comes out as ``float64``, a ``view`` of the assembled int64 words.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .. import device as _device
+from ..columnar import Column, Table
+from ..dtypes import DType, TypeId
+from ..kernels import parquet_decode as kern
+from ..utils.tracing import traced
+
+#: floor for the per-page byte/value buckets
+MIN_BUCKET = 128
+
+_I32 = torch.int32
+_I64 = torch.int64
+_M32 = 0xFFFFFFFF
+
+
+def bucket(n: int, floor: int = MIN_BUCKET) -> int:
+    """Next power of two >= max(n, floor) — the geometry-class quantizer."""
+    b = int(floor)
+    while b < n:
+        b *= 2
+    return b
+
+
+# -- static geometry ----------------------------------------------------------
+
+@dataclass(frozen=True)
+class ColumnGeom:
+    """Static decode geometry for one column chunk (the JAX package's
+    ``ColumnGeom``, field for field).
+
+    ``encoding`` is the data-page value encoding class, ``"plain"`` or
+    ``"dict"``.  ``has_copies`` is the host token scan's verdict on the
+    snappy streams.  Buckets: ``cb``/``ub`` compressed/uncompressed page
+    bytes, ``vb`` values per page, ``db`` dictionary entries, ``tb`` snappy
+    tokens per page; ``npages`` is the (pow2) data-page count.
+    """
+
+    name: str
+    dtype: DType
+    physical: int
+    codec: int
+    encoding: str
+    max_def: int
+    has_copies: bool
+    npages: int
+    cb: int
+    ub: int
+    vb: int
+    db: int
+    tb: int = 64
+
+
+@dataclass(frozen=True)
+class ChunkGeom:
+    """Geometry of a whole row-group chunk: per-column geometry plus the
+    shared row bucket ``rb``."""
+
+    columns: tuple
+    rb: int
+
+    def column(self, name: str) -> ColumnGeom:
+        for c in self.columns:
+            if c.name == name:
+                return c
+        raise KeyError(name)
+
+
+def _gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(t, idx, axis=1)`` (idx broadcast over t's rows)."""
+    if idx.shape[0] != t.shape[0]:
+        idx = idx.expand(t.shape[0], -1)
+    return torch.gather(t, 1, idx.to(_I64))
+
+
+def _scatter_drop(width: int, fill: int, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """``full((R, width), fill).at[row, idx].set(vals, mode="drop")`` with
+    JAX's index rules (a negative index counts from the end; anything still
+    outside ``[0, width)`` is dropped), without a host sync: dropped writes
+    go to a spare column that is cut off."""
+    idx = idx.to(_I64)
+    idx = torch.where(idx < 0, idx + width, idx)
+    idx = torch.where((idx >= 0) & (idx < width), idx,
+                      torch.full_like(idx, width))
+    out = torch.full((idx.shape[0], width + 1), fill, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_(1, idx, vals)[:, :width]
+
+
+def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum along each row of ``x[R, W]``.
+
+    Taken over the flattened planes and rebased per row: the planes are a
+    few rows of up to millions of slots, and a scan along a short innermost
+    dimension runs one row per block, which leaves most of a GPU idle."""
+    r, w = x.shape
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=_I32).view(r, w)
+    base = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    return flat - base[:, None]
+
+
+def _last_mark(mark: torch.Tensor) -> torch.Tensor:
+    """``clip(cummax(mark, dim=1), 0, W - 1)`` for the mark planes of the
+    two walks, where every non-negative entry holds its own slot index (or,
+    in the last slot only, more): the last marked slot at or before each
+    slot, 0 where there is none.  Computed as a prefix count of the marks,
+    a scatter of each marked slot to its rank and a gather, which is the
+    same integers without ``cummax``'s pass over (value, index) pairs."""
+    r, w = mark.shape
+    marked = mark >= 0
+    cnt = _row_cumsum(marked)
+    iota = torch.arange(w, dtype=_I32, device=mark.device).expand(r, w)
+    pos = _scatter_drop(w, 0, torch.where(marked, cnt - 1, w), iota)
+    last = _gather(pos, (cnt - 1).clamp(min=0))
+    return torch.where(cnt > 0, last, torch.zeros_like(last))
+
+
+# -- snappy ---------------------------------------------------------------------
+
+def _snappy_decompress(comp, clen, ulen, ub: int, has_copies: bool,
+                       tb: int) -> torch.Tensor:
+    """``comp[R, CB]`` snappy pages -> ``uint8[R, UB]`` uncompressed planes."""
+    r, cb = comp.shape
+    dk, ls, co = kern.snappy_walk(comp, clen, ulen, ub, tb)
+    lsrc = _scatter_drop(ub, 0, dk, ls)
+    coff = _scatter_drop(ub, 0, dk, co)
+    iota = torch.arange(ub, dtype=_I32, device=comp.device)[None, :]
+    # each output byte's token: the last token start at or before it
+    tidc = _last_mark(_scatter_drop(ub, -1, dk, dk))
+    lit = _gather(lsrc, tidc)
+    if has_copies:
+        # pointer-doubling chase: literal positions are fixed points, copy
+        # positions point strictly backwards, so bit_length(ub) rounds
+        # resolve every chain (overlapping copies included)
+        off = _gather(coff, tidc)
+        ptr = torch.where(off == 0, iota, (iota - off).clamp(0, ub - 1))
+        ptr = ptr.expand(r, ub).contiguous()
+        for _ in range(int(ub).bit_length()):
+            ptr = _gather(ptr, ptr)
+        src = _gather(lit, ptr) + (ptr - _gather(tidc, ptr))
+    else:
+        src = lit + (iota - tidc)
+    out = _gather(comp, src.clamp(0, cb - 1))
+    return torch.where(iota < ulen[:, None], out, torch.zeros_like(out))
+
+
+def _decompress(comp, clen, ulen, g: ColumnGeom) -> torch.Tensor:
+    """Codec dispatch: ``uint8[R, CB]`` pages -> ``uint8[R, UB]``."""
+    from ..io.parquet import CODEC_SNAPPY, CODEC_UNCOMPRESSED
+    if g.codec == CODEC_SNAPPY:
+        return _snappy_decompress(comp, clen, ulen, g.ub, g.has_copies, g.tb)
+    if g.codec == CODEC_UNCOMPRESSED:
+        if g.cb >= g.ub:
+            return comp[:, :g.ub].contiguous()
+        return torch.nn.functional.pad(comp, (0, g.ub - g.cb))
+    raise ValueError(f"device decode: unsupported codec {g.codec}")
+
+
+# -- RLE / bit-packed hybrid ------------------------------------------------------
+
+def _rle_hybrid(data, start, end, bw, n, vb: int) -> torch.Tensor:
+    """RLE/bit-packed hybrid streams -> int64[R, vb] holding u32 values.
+
+    ``data[R, UB]`` page planes; ``start``/``end`` byte ranges, ``bw`` bit
+    widths and ``n`` value counts are int32[R] (for dictionary indices the
+    width byte itself lives in the page payload).
+    """
+    r, ub = data.shape
+    mark, pk, bb, rv = kern.hybrid_walk(data, start, end, bw, n, vb)
+    ridc = _last_mark(mark)  # each value slot's run
+    pk2 = _gather(pk, ridc)
+    bb2 = _gather(bb, ridc)
+    rv2 = _gather(rv, ridc).to(_I64) & _M32
+    iota = torch.arange(vb, dtype=_I32, device=data.device)[None, :]
+    bit = bb2 + (iota - ridc) * bw[:, None]                 # int32, wraps
+    byte0 = bit >> 3
+    sh = (bit & 7).to(_I64)
+    by = [_gather(data, (byte0 + k).clamp(0, ub - 1)).to(_I64)
+          for k in range(5)]
+    lo = by[0] | by[1] << 8 | by[2] << 16 | by[3] << 24
+    # straddle byte: (hi << (32 - sh)) is taken mod 32 and selected away at
+    # sh == 0, as in the JAX package
+    hi = torch.where(sh == 0, torch.zeros_like(lo),
+                     (by[4] << ((32 - sh) & 31)) & _M32)
+    bw64 = bw.to(_I64)
+    bwm = torch.where(bw64 >= 32, torch.full_like(bw64, _M32),
+                      ((1 << bw64.clamp(max=31)) - 1) & _M32)
+    val = ((lo >> sh) | hi) & bwm[:, None]
+    val = torch.where(pk2, val, rv2)
+    return torch.where(iota < n[:, None], val, torch.zeros_like(val))
+
+
+# -- PLAIN values ---------------------------------------------------------------
+
+def _plain_gather(unc, voff, nn, dtype: DType) -> torch.Tensor:
+    """PLAIN-encoded values: ``unc[R, UB]`` page planes, ``voff[R]``
+    value-section starts, ``nn[R, V]`` per-slot value ordinals (-1 on null
+    slots: clipped, the caller masks).  Returns ``[R, V]`` words: uint8 for
+    BOOL8, int32 for 4-byte types, int64 for 8-byte types."""
+    if dtype.id == TypeId.BOOL8:
+        r, ub = unc.shape
+        nnc = nn.clamp(min=0)
+        byte = _gather(unc, (voff[:, None] + (nnc >> 3)).clamp(0, ub - 1))
+        return ((byte.to(_I32) >> (nnc & 7)) & 1).to(torch.uint8)
+    return kern.plain_gather(unc, voff.contiguous(), nn.contiguous(),
+                             dtype.storage.itemsize)
+
+
+# -- column decode --------------------------------------------------------------
+
+def _le32(unc, at: int) -> torch.Tensor:
+    """int32 little-endian read at static byte offset ``at`` of each row."""
+    b = [unc[:, at + k].to(_I64) for k in range(4)]
+    return (b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24).to(_I32)
+
+
+def _decode_column(p: dict, g: ColumnGeom, rb: int):
+    """One column chunk's planes -> (data[rb] words, validity[rb] | None)."""
+    comp, clen, ulen, nv = p["comp"], p["clen"], p["ulen"], p["nv"]
+    dev = comp.device
+    if g.encoding == "plain":
+        # PLAIN never reads the dictionary row: skip decompressing plane 0
+        unc = None
+        dunc = _decompress(comp[1:], clen[1:], ulen[1:], g)
+    else:
+        unc = _decompress(comp, clen, ulen, g)                # [P+1, UB]
+        dunc = unc[1:]
+    ulen_d, nv_d = ulen[1:], nv[1:]
+    npages, vb = g.npages, g.vb
+    iota_v = torch.arange(vb, dtype=_I32, device=dev)[None, :]
+
+    if g.max_def > 0:
+        # v1 page layout: [u32 def-len][def RLE hybrid][values]; the length
+        # prefix lives inside the (de)compressed body, so the value offset
+        # is per page
+        voff = 4 + _le32(dunc, 0)
+        ones = torch.ones(npages, dtype=_I32, device=dev)
+        lv = _rle_hybrid(dunc, 4 * ones, voff, ones, nv_d, vb)
+        valid = (lv == g.max_def) & (iota_v < nv_d[:, None])
+        nn = _row_cumsum(valid) - 1
+        nnon = nn[:, -1] + 1
+    else:
+        voff = torch.zeros(npages, dtype=_I32, device=dev)
+        valid = iota_v < nv_d[:, None]
+        nn = iota_v.expand(npages, vb)
+        nnon = nv_d
+
+    if g.encoding == "plain":
+        dense = _plain_gather(dunc, voff, nn, g.dtype)
+    else:  # dictionary: decode the dictionary page, gather through indices
+        iota_d = torch.arange(g.db, dtype=_I32, device=dev)
+        dvals = _plain_gather(unc[:1].contiguous(),
+                              torch.zeros(1, dtype=_I32, device=dev),
+                              iota_d[None, :], g.dtype)[0]
+        dvals = torch.where(iota_d < nv[0], dvals, torch.zeros_like(dvals))
+        bw = _gather(dunc, voff.clamp(0, g.ub - 1)[:, None])[:, 0].to(_I32)
+        idx = _rle_hybrid(dunc, voff + 1, ulen_d, bw, nnon, vb)
+        slot = _gather(idx, nn.clamp(0, vb - 1)).to(_I32)
+        dense = dvals[slot.clamp(0, g.db - 1).to(_I64)]
+
+    dense = torch.where(valid, dense, torch.zeros_like(dense))
+
+    # global row -> (page, slot), derived on the device from the per-page
+    # value counts: page = number of pages that end at or before the row
+    nvc = torch.cumsum(nv_d, dim=0, dtype=_I32)
+    start = nvc - nv_d
+    iota_r = torch.arange(rb, dtype=_I32, device=dev)
+    rp = torch.searchsorted(nvc, iota_r, right=True, out_int32=True)
+    inrow = iota_r < nvc[-1]
+    rpc = rp.clamp(0, npages - 1).to(_I64)
+    ric = (iota_r - start[rpc]).clamp(0, vb - 1).to(_I64)
+    data = torch.where(inrow, dense[rpc, ric], torch.zeros((), dtype=dense.dtype,
+                                                           device=dev))
+    if g.max_def > 0:
+        return data, valid[rpc, ric] & inrow
+    return data, None
+
+
+@traced("decode_table")
+def decode_table(planes: dict, geom: ChunkGeom) -> Table:
+    """Page planes (``DevicePageChunk.to_device()``) -> bucket-padded Table.
+
+    The staged chunk contract (``io/staging.py``, ``padded=True``): rows are
+    padded to the ``rb`` bucket with zeroed values and False validity; a
+    column carries validity iff its schema has a def level.  The planes'
+    device is the output's; no host sync.
+    """
+    cols, names = [], []
+    for g in geom.columns:
+        data, validity = _decode_column(planes[g.name], g, geom.rb)
+        tdt = g.dtype.torch_dtype
+        if data.dtype != tdt:  # float and unsigned storage: same-width bits
+            data = data.view(tdt)
+        cols.append(Column(g.dtype, data=data, validity=validity))
+        names.append(g.name)
+    return Table(cols, names)
+
+
+def probe_table(geom: ChunkGeom, device=_device.DEFAULT) -> Table:
+    """A 1-row Table with the decode output's schema."""
+    device = _device.resolve(device)
+    cols, names = [], []
+    for g in geom.columns:
+        data = torch.zeros(1, dtype=g.dtype.torch_dtype, device=device)
+        validity = torch.ones(1, dtype=torch.bool, device=device) \
+            if g.max_def > 0 else None
+        cols.append(Column(g.dtype, data=data, validity=validity))
+        names.append(g.name)
+    return Table(cols, names)
+
+
+def zero_planes(geom: ChunkGeom, device=_device.DEFAULT) -> dict:
+    """All-zero planes matching ``geom`` (a zero page decodes to zero rows:
+    the token walk's loop condition fails at once)."""
+    device = _device.resolve(device)
+    out = {}
+    for g in geom.columns:
+        out[g.name] = {
+            "comp": torch.zeros((g.npages + 1, g.cb), dtype=torch.uint8,
+                                device=device),
+            "clen": torch.zeros(g.npages + 1, dtype=_I32, device=device),
+            "ulen": torch.zeros(g.npages + 1, dtype=_I32, device=device),
+            "nv": torch.zeros(g.npages + 1, dtype=_I32, device=device),
+        }
+    return out

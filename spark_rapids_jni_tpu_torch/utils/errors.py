@@ -1,0 +1,280 @@
+"""Error taxonomy, typed failures, and cooperative cancellation.
+
+A copy of ``spark_rapids_jni_tpu/utils/errors.py`` (the port imports
+nothing of that package).  Two changes: ``retry_call``'s defaults are the
+module constants ``RETRY_MAX`` and ``RETRY_BACKOFF_S`` (no environment
+knobs), and retries count in ``utils.tracing`` and log through ``logging``.
+
+The serving regime (ROADMAP item 3) needs every failure classified before
+anything can decide what to do with it: retry, degrade, or surface.  This
+module is the dependency-free bottom layer both sides of the bridge share —
+``engine/recovery.py`` builds retry/degradation policy on top, and the
+bridge carries ``to_wire()`` documents in ``_error_body`` the way
+``plan_verification`` already travels.
+
+Taxonomy (one ``kind`` per exception + a retryable bit):
+
+- ``transient``  — I/O hiccups, timeouts on a single op; same operation may
+  succeed if repeated (retryable).
+- ``resource``   — allocation failure (device ``RESOURCE_EXHAUSTED``, host
+  OOM); repeating at the same footprint fails the same way, so NOT blind-
+  retryable — the executor degrades capacity instead (engine/recovery.py).
+- ``cancelled``  — cooperative cancellation or deadline expiry; never
+  retried, never degraded.
+- ``fatal``      — everything else (bugs, bad plans, corrupt data).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import zlib
+from typing import Callable, Optional, Tuple
+
+KIND_TRANSIENT = "transient"
+KIND_RESOURCE = "resource"
+KIND_CANCELLED = "cancelled"
+KIND_FATAL = "fatal"
+
+KINDS = (KIND_TRANSIENT, KIND_RESOURCE, KIND_CANCELLED, KIND_FATAL)
+
+
+class EngineError(RuntimeError):
+    """Base of the typed engine failures; subclasses pin kind/retryable."""
+
+    kind = KIND_FATAL
+    retryable = False
+
+
+class TransientError(EngineError):
+    kind = KIND_TRANSIENT
+    retryable = True
+
+
+class ResourceExhaustedError(EngineError):
+    kind = KIND_RESOURCE
+    retryable = False  # blind retry repeats the allocation; degrade instead
+
+
+class AdmissionRejectedError(EngineError):
+    """The scheduler shed this query at admission (engine/scheduler.py).
+
+    ``resource`` kind — the server is saturated, not broken — but NOT
+    retryable by the blind in-op retry loop: re-submitting immediately
+    would re-enter the same overloaded admission queue.  Clients decide
+    when (and whether) to come back; the wire doc carries trace_id and
+    the shed bundle pointer like every other typed failure."""
+
+    kind = KIND_RESOURCE
+    retryable = False
+
+
+class QueryCancelledError(EngineError):
+    kind = KIND_CANCELLED
+    retryable = False
+
+
+class QueryTimeoutError(QueryCancelledError):
+    """Deadline expiry — a cancellation the clock requested."""
+
+
+class BridgeTimeoutError(TransientError, TimeoutError):
+    """A bridge socket op exceeded its deadline."""
+
+
+#: substrings that mark a runtime allocation failure (torch raises
+#: ``torch.cuda.OutOfMemoryError`` saying "out of memory"; host numpy raises
+#: MemoryError directly)
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory")
+
+
+def classify(exc: BaseException) -> Tuple[str, bool]:
+    """``(kind, retryable)`` for any exception.
+
+    Typed ``EngineError``s carry their own class attributes; foreign
+    exceptions map by type and message: allocation failures are
+    ``resource``, I/O and socket errors ``transient``, the rest ``fatal``.
+    """
+    if isinstance(exc, EngineError):
+        return exc.kind, exc.retryable
+    if isinstance(exc, MemoryError):
+        return KIND_RESOURCE, False
+    msg = str(exc)
+    if any(m in msg for m in _OOM_MARKERS):
+        return KIND_RESOURCE, False
+    if isinstance(exc, (TimeoutError, ConnectionError)):
+        return KIND_TRANSIENT, True
+    if isinstance(exc, OSError):
+        return KIND_TRANSIENT, True
+    return KIND_FATAL, False
+
+
+def is_resource_exhausted(exc: BaseException) -> bool:
+    return classify(exc)[0] == KIND_RESOURCE
+
+
+def is_cancellation(exc: BaseException) -> bool:
+    return classify(exc)[0] == KIND_CANCELLED
+
+
+# -- wire format (bridge _error_body / client re-raise) ----------------------
+
+_WIRE_TYPES = {
+    "TransientError": TransientError,
+    "ResourceExhaustedError": ResourceExhaustedError,
+    "AdmissionRejectedError": AdmissionRejectedError,
+    "QueryCancelledError": QueryCancelledError,
+    "QueryTimeoutError": QueryTimeoutError,
+    "BridgeTimeoutError": BridgeTimeoutError,
+}
+
+_KIND_FALLBACK = {
+    KIND_TRANSIENT: TransientError,
+    KIND_RESOURCE: ResourceExhaustedError,
+    KIND_CANCELLED: QueryCancelledError,
+}
+
+
+def to_wire(exc: BaseException) -> dict:
+    """Structured error document (bridge ``_error_body`` payload).
+
+    Carries the trace context when the exception has one (stamped by
+    ``utils.blackbox.post_mortem`` on the way out of the executor) so a
+    round-tripped error keeps its join key."""
+    kind, retryable = classify(exc)
+    doc = {"error": "taxonomy", "kind": kind, "retryable": retryable,
+           "type": type(exc).__name__, "msg": str(exc)}
+    tid = getattr(exc, "trace_id", "")
+    if tid:
+        doc["trace_id"] = tid
+    bundle = getattr(exc, "bundle_path", "")
+    if bundle:
+        doc["bundle"] = bundle
+    return doc
+
+
+def from_wire(doc: dict) -> Exception:
+    """Reconstruct a typed exception from a ``to_wire`` document.
+
+    Known engine types rebuild exactly; anything else lands on the
+    kind-matched ``EngineError`` subclass (or a plain ``RuntimeError``
+    for ``fatal``) with the original type name preserved in the message.
+    The trace context rides along: ``e.trace_id`` joins the failure to
+    the server's spans/profile entry, ``e.bundle_path`` points at its
+    post-mortem bundle (utils/blackbox.py) when one was written.
+    """
+    kind = doc.get("kind", KIND_FATAL)
+    tname = doc.get("type", "")
+    msg = doc.get("msg", "")
+    cls = _WIRE_TYPES.get(tname)
+    if cls is not None:
+        exc: Exception = cls(msg)
+    else:
+        text = f"{tname}: {msg}" if tname else msg
+        fb = _KIND_FALLBACK.get(kind)
+        exc = fb(text) if fb is not None \
+            else RuntimeError(f"bridge error: {text}")
+    tid = doc.get("trace_id", "")
+    if tid:
+        exc.trace_id = tid
+    bundle = doc.get("bundle", "")
+    if bundle:
+        exc.bundle_path = bundle
+    return exc
+
+
+# -- cooperative cancellation ------------------------------------------------
+
+class CancelToken:
+    """Cancellation flag + optional monotonic deadline, checked at chunk
+    boundaries (executor streaming loops, exchange chunk loop, prefetch
+    producer).  Cooperative: nothing is interrupted mid-dispatch — the next
+    boundary raises, and the existing ``close()`` machinery releases reader
+    threads and device buffers on the way out."""
+
+    __slots__ = ("_event", "_deadline", "_reason")
+
+    def __init__(self, timeout_s: Optional[float] = None):
+        self._event = threading.Event()
+        self._deadline = (time.monotonic() + timeout_s
+                          if timeout_s and timeout_s > 0 else None)
+        self._reason = ""
+
+    def cancel(self, reason: str = "cancelled") -> None:
+        self._reason = reason
+        self._event.set()
+
+    @property
+    def cancelled(self) -> bool:
+        return self._event.is_set()
+
+    @property
+    def expired(self) -> bool:
+        return self._deadline is not None \
+            and time.monotonic() > self._deadline
+
+    def should_stop(self) -> bool:
+        """Non-raising poll (producer threads break their loop on this)."""
+        return self.cancelled or self.expired
+
+    def remaining_s(self) -> Optional[float]:
+        if self._deadline is None:
+            return None
+        return max(0.0, self._deadline - time.monotonic())
+
+    def check(self) -> None:
+        """Raise the typed cancellation if the token has tripped."""
+        if self.cancelled:
+            raise QueryCancelledError(
+                f"query cancelled: {self._reason or 'cancelled'}")
+        if self.expired:
+            raise QueryTimeoutError(
+                "query deadline exceeded")
+
+
+# -- bounded retry -----------------------------------------------------------
+
+RETRY_MAX = 3          # retries after the first attempt
+RETRY_BACKOFF_S = 0.01  # first backoff; doubles per attempt
+
+
+def retry_call(fn: Callable, site: str,
+               retry_max: Optional[int] = None,
+               backoff_s: Optional[float] = None,
+               cancel: Optional[CancelToken] = None):
+    """Run ``fn`` with bounded exponential backoff on *retryable* failures.
+
+    Only exceptions classifying retryable (transient I/O) are retried —
+    resource exhaustion and cancellation propagate immediately.  Backoff
+    doubles per attempt from ``backoff_s`` (default ``RETRY_BACKOFF_S``) with
+    deterministic ±25% jitter derived from the attempt index.  Each retry
+    ticks the counters ``engine.retries`` and ``engine.retries.<site>``.
+    """
+    import logging
+    from . import tracing
+    limit = RETRY_MAX if retry_max is None else int(retry_max)
+    base = RETRY_BACKOFF_S if backoff_s is None else float(backoff_s)
+    attempt = 0
+    while True:
+        if cancel is not None:
+            cancel.check()
+        try:
+            return fn()
+        except BaseException as e:  # noqa: BLE001 — classified below
+            kind, retryable = classify(e)
+            if not retryable or attempt >= limit:
+                raise
+            attempt += 1
+            tracing.count("engine.retries")
+            tracing.count(f"engine.retries.{site}")
+            # deterministic jitter in [-25%, +25%]: crc32 of site:attempt —
+            # stable across processes, unlike hash() under PYTHONHASHSEED
+            j = (zlib.crc32(f"{site}:{attempt}".encode()) % 1000) / 1000.0
+            delay = base * (2.0 ** (attempt - 1)) * (0.75 + 0.5 * j)
+            if cancel is not None and cancel.remaining_s() is not None:
+                delay = min(delay, cancel.remaining_s())
+            logging.getLogger(__name__).warning(
+                "retry %d/%d at %s after %s: %s (backoff %.3fs)",
+                attempt, limit, site, kind, e, delay)
+            if delay > 0:
+                time.sleep(delay)
