@@ -44,9 +44,14 @@ Phases (any failed check raises, and the script exits non-zero):
             link bytes, and a profile of one group's decode.
 7. decode_kernels  K3 plain_gather on its own (blk, 512) -> (blk, 128)
             contract and on the page planes decode_table gives it (4 and
-            8 bytes, with nulls); W1 snappy_walk and W2 hybrid_walk on
-            literal-only, copy-bearing, def-level and dictionary pages.
-            Bit-exact against the plain versions, timed.
+            8 bytes, with nulls); W1 snappy_walk and W2 hybrid_decode on
+            every call decode_table makes on the fact file's first group
+            and on a copy-bearing file (literal-only, copy-bearing,
+            def-level and dictionary pages), then on their torn sets
+            (hybrid_torn_set, snappy_torn_set: damaged and wrapping
+            streams, which the CPU tests hold against the JAX package).
+            Bit-exact against the plain versions, timed; W1/W2 report the
+            tokens or runs walked, ns a step and the chain floor.
 8. q5       q5-lite over the three files for the year 2000 (footer pruning
             engages), by the device route and by the host route, twice
             each (cold, warm), against a numpy oracle (counts exact, sums
@@ -106,6 +111,23 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def device_ms(torch, fn, iters=5, spin_cycles=10_000_000) -> float:
+    """Device time of one call of ``fn`` without its host time: a spin
+    kernel (~5 ms) holds the stream while ``iters`` calls are enqueued
+    behind it, so the events around them time the card's work alone."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
 def wall(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -121,8 +143,9 @@ TRACED = ("decode_table", "left_semi_join", "groupby", "inner_join",
 def profile_top(torch, fn, top: int = 10) -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, the summed
     device time of its kernels and copies, their ratio (the device busy
-    share; the profiler's own cost is in the wall), the kernels with the
-    most device time, and the device time under each traced range."""
+    share; the profiler's own cost is in the wall), the number of kernels
+    and copies launched, the kernels with the most device time, and the
+    device time under each traced range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -146,6 +169,7 @@ def profile_top(torch, fn, top: int = 10) -> dict:
     device_ms = sum(dev_us(e) for e in kern) / 1e3
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
+            "launches": sum(e.count for e in kern),
             "top_kernels": [[e.key[:60], dev_us(e) / 1e3, e.count]
                             for e in kern[:top]],
             "ranges": {e.key: [dev_us(e, True) / 1e3, e.count]
@@ -502,6 +526,147 @@ def rle_hybrid_encode(values: np.ndarray, bw: int) -> bytes:
             out.append(_uvarint((k << 1) | 1))
             out.append(packed[g0 * bw:g1 * bw])
     return b"".join(out)
+
+
+# W1's and W2's torn sets: inputs the kernels must walk bit for bit like
+# their plain versions, real streams and damaged ones alike (the CPU tests
+# hold the same inputs against the JAX package)
+TORN_UB, TORN_VB = 1 << 17, 8192
+
+
+def _hybrid_blocks(rng, n: int, bw: int, lo: int, hi: int) -> np.ndarray:
+    """``n`` values < 2^bw in blocks of lo..hi values, each block one
+    repeated value (an RLE run) or random ones (a bit-packed run)."""
+    out = np.empty(n, np.int64)
+    at = 0
+    while at < n:
+        k = min(int(rng.integers(lo, hi + 1)), n - at)
+        out[at:at + k] = rng.integers(0, 1 << bw) if rng.random() < 0.5 \
+            else rng.integers(0, 1 << bw, k)
+        at += k
+    return out
+
+
+def hybrid_torn_set(seed: int):
+    """W2's torn set: (labels, data uint8[R, TORN_UB], start, end, bw,
+    n int32[R], vb, jax_ok bool[R]).  Real streams longer than one window
+    of the kernel, with runs at every phase of its window boundaries;
+    chains of runs that each jump past a window, more in a row than the
+    kernel stages for one batch, between runs that do not;
+    random bytes at bit widths 0, 1, 7, 32 and 40; zero-count headers;
+    runs past n and past vb; a 5-byte header whose groups*8 wraps the value
+    count (the walk then laps the stream, writing slot 0 with negative
+    counts and the same slots again); a header that steps 0 bytes; empty
+    walks.  ``jax_ok`` is False on the row where the port's ``it < n`` bound
+    ends a walk that the JAX loop would carry on for ~2^30 steps."""
+    rng = np.random.default_rng(seed + 23)
+    ub, vb = TORN_UB, TORN_VB
+    rows = []
+
+    def add(label, body, start, bw, n, end=None, jax_ok=True, lead=0):
+        row = np.zeros(ub, np.uint8)
+        row[0] = lead
+        body = np.frombuffer(bytes(body), np.uint8)[:ub - start]
+        row[start:start + len(body)] = body
+        rows.append((label, row, start,
+                     start + len(body) if end is None else end, bw, n,
+                     jax_ok))
+
+    enc = rle_hybrid_encode
+    add("def levels, 5% nulls, 65,536 values (past vb)",
+        enc((rng.random(1 << 16) >= 0.05).astype(np.int64), 1), 0, 1,
+        1 << 16)
+    add("indices bw 11, RLE and packed blocks",
+        enc(_hybrid_blocks(rng, vb, 11, 8, 64), 11), 5, 11, vb)
+    add("bw 5, short blocks", enc(_hybrid_blocks(rng, vb, 5, 8, 24), 5), 1,
+        5, vb)
+    add("bw 11, long packed runs (hops past a window)",
+        enc(_hybrid_blocks(rng, vb, 11, 256, 1024), 11), 2, 11, vb)
+    add("bw 32, RLE and packed blocks",
+        enc(_hybrid_blocks(rng, 2048, 32, 8, 64), 32), 3, 32, 2048)
+    ones = b"".join(bytes([2, int(x)]) for x in rng.integers(0, 256, vb))
+    for start in range(4):  # 2-byte runs: every phase of every boundary
+        add(f"bw 8 one-value runs from byte {start}", ones, start, 8, vb)
+    add("runs past n", enc(_hybrid_blocks(rng, vb, 3, 8, 40), 3), 0, 3,
+        vb // 3)
+    # bit-packed runs of 64 groups at bw 32 step 2,050 bytes, past a
+    # window; RLE runs of 8 values step 5
+    far = [_uvarint((64 << 1) | 1)
+           + rng.integers(0, 256, 64 * 32, dtype=np.uint8).tobytes()
+           for _ in range(50)]
+    near = [_uvarint(8 << 1) + int(x).to_bytes(4, "little")
+            for x in rng.integers(0, 1 << 32, 50, dtype=np.uint64)]
+    add("far runs: chains of 5, 5 and 40 between RLE runs",
+        b"".join(far[:5] + near[:20] + far[5:10] + near[20:40] + far[10:]
+                 + near[40:]), 4, 32, 1 << 16)
+    for bw in (0, 1, 7, 32, 40):
+        add(f"random bytes, bw {bw}",
+            rng.integers(0, 256, ub - 8, dtype=np.uint8).tobytes(),
+            int(rng.integers(0, 8)), bw, vb, end=ub)
+    add("zero-count headers", b"", 0, 3, vb, end=40)
+    # nine RLE runs of 40 values (27 bytes), then a packed header with
+    # groups = 2^28 - 2: count 2^31 - 16 wraps v, and 16 * groups steps
+    # back to the stream's start (5 + 27 - 32)
+    lap = b"".join(bytes([80]) + int(x).to_bytes(2, "little")
+                   for x in rng.integers(0, 1 << 16, 9))
+    add("wrapping value count (laps the stream)",
+        lap + _uvarint(((2**28 - 2) << 1) | 1)
+        + rng.integers(0, 256, 64, dtype=np.uint8).tobytes(), 6, 16, vb)
+    # a packed header with groups = -5 and bw 1 steps 5 - 5 = 0 bytes
+    add("a header that steps 0 bytes",
+        enc(rng.integers(0, 2, 64), 1) + _uvarint(2**32 - 9), 0, 1, vb)
+    # two RLE runs of 100, then groups = 2^28 - 1: v wraps and s jumps to
+    # -2^31 + 4, where every clipped read sees row[0] = 2 (one-value runs)
+    add("it < n bound (value count and position wrap)",
+        bytes([0xC8, 0x01, 7, 0xC8, 0x01, 9]) + _uvarint(2**29 - 1), 1, 8,
+        vb, jax_ok=False, lead=2)
+    add("start past end", enc(rng.integers(0, 8, 64), 3), 10, 3, vb, end=5)
+    add("n = 0", enc(rng.integers(0, 8, 64), 3), 0, 3, 0)
+    labels = [r[0] for r in rows]
+    data = np.stack([r[1] for r in rows])
+    cols = [np.asarray([r[k] for r in rows], np.int32) for k in (2, 3, 4, 5)]
+    return labels, data, *cols, vb, np.asarray([r[6] for r in rows])
+
+
+def snappy_torn_set(path, device: str):
+    """W1's torn set: the page planes of ``path`` (a copy-bearing snappy
+    file: literal and copy tokens, pages longer than one window) plus torn
+    rows: random bytes, a truncated compressed length, a page cut short,
+    a literal that leaves the window at once, and a chain of 40 literals
+    that each leave it (more in a row than the kernel stages for one
+    batch) between short literals and copies.  Returns numpy ``(comp, clen,
+    ulen)`` and the column's geometry."""
+    from spark_rapids_jni_tpu_torch.io import parquet as ppq
+    chunk, _ = ppq.plan_device_group(ppq.ParquetFile(path), 0, None, 1 << 30,
+                                     device)
+    g = chunk.geom.columns[0]
+    p = chunk.planes[g.name]
+    cb = p["comp"].shape[1]
+    rng = np.random.default_rng(17)
+    torn = rng.integers(0, 256, (3, cb), dtype=np.uint8)
+    # a 2-byte preamble, then a 3,000-byte literal: tag (61 << 2) and two
+    # length bytes
+    torn[2, :3] = [0x80, 0x20, 61 << 2]
+    torn[2, 3:5] = np.frombuffer((3000 - 1).to_bytes(2, "little"), np.uint8)
+
+    def literal(n):
+        body = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        return (bytes([(n - 1) << 2]) if n <= 60 else
+                bytes([61 << 2]) + (n - 1).to_bytes(2, "little")) + body
+    copy = bytes([(7 << 2) | 2, 5, 0])  # 8 bytes from 5 back
+    chain = np.frombuffer(b"".join(
+        [bytes([0x80, 0x80, 0x08])] + [literal(10)] * 3
+        + [literal(2100) for _ in range(40)] + [copy] * 5
+        + [literal(2100) for _ in range(3)] + [literal(10)] * 2), np.uint8)
+    width = max(cb, len(chain))
+    comp = np.zeros((p["comp"].shape[0] + 4, width), np.uint8)
+    comp[:-4, :cb] = p["comp"]
+    comp[-4:-1, :cb] = torn
+    comp[-1, :len(chain)] = chain
+    clen = np.concatenate([p["clen"], [cb, 9, cb, len(chain)]])
+    ulen = np.concatenate([p["ulen"], [g.ub, g.ub, g.ub, 1 << 17]])
+    clen[1] = clen[1] // 2  # a page cut short
+    return comp, clen.astype(np.int32), ulen.astype(np.int32), g
 
 
 def snappy_encode(data: bytes, copies: bool) -> bytes:
@@ -1002,7 +1167,7 @@ def phase_decode(torch, root, fact, seed: int, matrix_rows: int) -> dict:
 def capture_decode_calls(pqk, pqd, planes, geom) -> dict:
     """The arguments ``decode_table`` gives each kernel wrapper, captured by
     wrapping the wrappers for one decode (the main path's real inputs)."""
-    calls = {"plain_gather": [], "snappy_walk": [], "hybrid_walk": []}
+    calls = {"plain_gather": [], "snappy_walk": [], "hybrid_decode": []}
     saved = {name: getattr(pqk, name) for name in calls}
 
     def wrap(name):
@@ -1027,12 +1192,91 @@ def _plain_ms(torch, fn, reps: int = 1) -> float:
     return s * 1e3
 
 
+# next-pointers the chain probe follows: ~20 ms of hops, so its launch is
+# lost in the timing
+PROBE_HOPS = 1 << 20
+
+
+def hop_ns(torch, pqk) -> float:
+    """One dependent shared-memory hop of a walk's chain, in ns: the chain
+    probe (``hop_probe``) timed on the card."""
+    return device_ms(torch, lambda: pqk.hop_probe(PROBE_HOPS, DEV)) * 1e6 \
+        / PROBE_HOPS
+
+
+def walk_case(torch, pqk, name: str, tag: str, a, hop: float) -> dict:
+    """W1 (``snappy_walk``) or W2 (``hybrid_decode``) against its plain
+    version on one call's arguments ``a``: max_abs_err (0 or the check
+    fails, naming the rows that differ), ms (CUDA events around back-to-back
+    wrapper calls, so the wrapper's host time shows where it is the
+    longer), kernel ms (the kernels' own device time, ``device_ms``), plain
+    ms (wall clock: Python walks), bound ms (bytes), the tokens or runs
+    walked (all rows and the longest row), kernel ns a token or run on the
+    longest row, and beside it ``hop`` (ns of one shared-memory hop, from
+    ``hop_ns``) and the longest row's walk at one such hop a step."""
+    fn, plain = getattr(pqk, name), getattr(pqk, name + "_plain")
+    got = fn(*a)
+    want, plain_s = wall(torch, lambda: plain(*a))
+    if name == "snappy_walk":
+        comp, clen, ulen, ub, tb = a
+        r = comp.shape[0]
+        steps = (want[0] < ub).sum(dim=1)
+        nbytes = int(clen.clamp(0, comp.shape[1]).sum()) + 8 * r \
+            + 12 * r * tb
+    else:
+        data, start, end, bw, n, vb = a
+        r, ub = data.shape
+        got, want = (got,), (want,)
+        # a run per written slot: exact on real streams (rising counts)
+        steps = (pqk.hybrid_walk_plain(*a)[0] >= 0).sum(dim=1)
+        streams = (end.clamp(0, ub) - start.clamp(0, ub)).clamp(min=0)
+        nbytes = int(streams.sum()) + 16 * r + 8 * r * vb
+    diff = [(x.to(torch.int64) - y.to(torch.int64)).abs()
+            for x, y in zip(got, want)]
+    e = max((int(d.max()) for d in diff if d.numel()), default=0)
+    rows = [i for i in range(r) if any(bool(d[i].any()) for d in diff)]
+    check(e == 0 and not rows, f"{name} bit-exact on {tag} (rows {rows})")
+    ms = cuda_ms(torch, lambda: fn(*a), iters=5, warmup=1)
+    kernel_ms = device_ms(torch, lambda: fn(*a))
+    longest = int(steps.max()) if r else 0
+    return {"case": tag, "rows": r, "max_abs_err": e,
+            "walked": int(steps.sum()), "longest_walk": longest,
+            "ms": ms, "kernel_ms": kernel_ms,
+            "ns_per_step": kernel_ms * 1e6 / longest if longest else None,
+            "plain_ms": plain_s * 1e3,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "hop_ns": hop, "one_hop_chain_ms": longest * hop / 1e6}
+
+
+def phase_torn_walks(torch, pqk, root, seed: int, hop: float) -> dict:
+    """W1 and W2 on their torn sets (hybrid_torn_set, snappy_torn_set), the
+    inputs on which the CPU tests hold the plain versions to the JAX
+    package."""
+    labels, data, start, end, bw, n, vb, _ = hybrid_torn_set(seed)
+    a = [torch.from_numpy(x).to(DEV) for x in (data, start, end, bw, n)]
+    w2 = walk_case(torch, pqk, "hybrid_decode",
+                   f"torn set ({len(labels)} rows)", (*a, vb), hop)
+    path = root / "torn_copies.parquet"
+    cols = matrix_columns(3000, 2, "plain", "sparse", True)
+    write_parquet(path, [c for c in cols if c[0] == "int64"], 3000, "snappy",
+                  True, page_bytes=8192)
+    comp, clen, ulen, g = snappy_torn_set(path, DEV)
+    path.unlink()
+    a = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+         for x in (comp, clen, ulen)]
+    w1 = walk_case(torch, pqk, "snappy_walk",
+                   f"torn set ({comp.shape[0]} rows)", (*a, g.ub, g.tb),
+                   hop)
+    return {"snappy_walk": w1, "hybrid_decode": w2}
+
+
 def phase_decode_kernels(torch, root, fact_path, seed: int,
                          matrix_rows: int) -> dict:
     """K3 on its own contract and on real page planes (4 and 8 bytes, with
     nulls); W1 on literal-only and copy-bearing pages; W2 on def levels and
-    dictionary indices.  Bit-exact, timed (CUDA events; plain versions by
-    wall clock, the W1/W2 ones being Python loops)."""
+    dictionary indices; then W1 and W2 on their torn sets.  Bit-exact,
+    timed (CUDA events; plain versions by wall clock, the W1/W2 ones being
+    Python loops)."""
     from spark_rapids_jni_tpu_torch.io.parquet import (ParquetFile,
                                                        plan_device_group)
     from spark_rapids_jni_tpu_torch.kernels import parquet_decode as pqk
@@ -1044,7 +1288,8 @@ def phase_decode_kernels(torch, root, fact_path, seed: int,
                    if x.numel() else 0 for x, y in zip(a, b))
 
     out = {"plain_gather": {"cases": []}, "snappy_walk": {"cases": []},
-           "hybrid_walk": {"cases": []}}
+           "hybrid_decode": {"cases": []}}
+    hop = out["hop_ns"] = hop_ns(torch, pqk)
     # K3's own contract: u8 (blk, 512) -> u32 (blk, 128), voff 0, nn arange
     blk = 1 << 16
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -1076,8 +1321,9 @@ def phase_decode_kernels(torch, root, fact_path, seed: int,
                     cases.append((f"{tag} size {a[3]}", a))
             for a in calls["snappy_walk"]:
                 walks.append(("snappy_walk", tag, a))
-            for a in calls["hybrid_walk"]:
-                walks.append(("hybrid_walk", tag, a))
+            for k, a in enumerate(calls["hybrid_decode"]):
+                what = "def levels" if g.max_def > 0 and k == 0 else "indices"
+                walks.append(("hybrid_decode", f"{tag} {what}", a))
     mpath.unlink()
 
     for label, (u, vo, n_, size) in cases:
@@ -1095,36 +1341,16 @@ def phase_decode_kernels(torch, root, fact_path, seed: int,
                 u, vo, n_, size), iters=5, warmup=1),
             "bound_ms": r * v * (4 + 2 * size) / HBM_BYTES_PER_S * 1e3})
 
-    seen = set()
     for name, tag, a in walks:
-        key = (name, tag, tuple(a[0].shape))
-        if key in seen:
-            continue
-        seen.add(key)
-        fn = getattr(pqk, name)
-        plain = getattr(pqk, name + "_plain")
-        got = fn(*a)
-        want = plain(*a)
-        torch.cuda.synchronize()
-        e = err(got, want)
-        check(e == 0, f"{name} bit-exact on {tag}")
-        if name == "snappy_walk":
-            tb = a[4]
-            longest = int((got[0] < a[3]).sum(dim=1).max())
-            nbytes = a[0].numel() + 8 * a[0].shape[0] + 12 * a[0].shape[0] * tb
-        else:
-            vb = a[5]
-            longest = int((got[0] >= 0).sum(dim=1).max())
-            nbytes = a[0].numel() + 16 * a[0].shape[0] + 13 * a[0].shape[0] * vb
-        out[name]["cases"].append({
-            "case": tag, "rows": int(a[0].shape[0]), "max_abs_err": e,
-            "longest_walk": longest,
-            "ms": cuda_ms(torch, lambda: fn(*a), iters=5, warmup=1),
-            "plain_ms": _plain_ms(torch, lambda: plain(*a)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
-    for name, k in out.items():
+        out[name]["cases"].append(walk_case(torch, pqk, name, tag, a, hop))
+    for name, case in phase_torn_walks(torch, pqk, root, seed, hop).items():
+        out[name]["torn"] = case
+    for name in ("plain_gather", "snappy_walk", "hybrid_decode"):
+        k = out[name]
         check(k["cases"], f"{name} was checked")
-        k["max_abs_err"] = max(c["max_abs_err"] for c in k["cases"])
+        k["max_abs_err"] = max(c["max_abs_err"] for c in
+                               k["cases"] + ([k["torn"]] if "torn" in k
+                                             else []))
     return out
 
 
@@ -1151,7 +1377,7 @@ def phase_q5(torch, root, fact, dates, stores, pqk, tracing) -> dict:
             if route == "device" and rep == 1:
                 out["launches"] = {name: pqk.launches(name) for name in
                                    ("plain_gather", "snappy_walk",
-                                    "hybrid_walk")}
+                                    "hybrid_decode")}
             check(q5_matches(got, want),
                   f"q5-lite by the {route} route == numpy oracle")
         out[route] = {"cold_s": times[0], "warm_s": times[1],
@@ -1287,17 +1513,19 @@ def main() -> int:
                         "offsets and assembles words",
         "shape": contract["shape"]})
     for name, ref in (("snappy_walk", "parquet_decode.py:130"),
-                      ("hybrid_walk", "parquet_decode.py:247")):
+                      ("hybrid_decode", "parquet_decode.py:247")):
         case = max(dk[name]["cases"], key=lambda c: c["longest_walk"])
         rows.append({
             "name": name, "route": "cuda",
             "source": pkg + "parquet_decode.cu", "replaces": jax_pkg + ref,
             "launches": q5["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
-            "kernel_ms": case["ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"], "bound_by": "serial",
-            "longest_walk": case["longest_walk"], "library_ms": None,
-            "library_note": "a serial header walk; no PyTorch call does it",
+            "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": "bytes",
+            "longest_walk": case["longest_walk"],
+            "ns_per_step": case["ns_per_step"], "hop_ns": case["hop_ns"],
+            "library_ms": None,
+            "library_note": "a header walk; no PyTorch call does it",
             "case": case["case"]})
     emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)

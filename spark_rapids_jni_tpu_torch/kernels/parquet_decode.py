@@ -5,10 +5,14 @@
   gather of ``_plain_gather`` around it: the PLAIN values of page planes,
   read at per-slot offsets and assembled into int32 or int64 words in one
   pass.
-- ``snappy_walk`` (W1) and ``hybrid_walk`` (W2) are the serial header walks
-  that the JAX package writes as vmapped ``while_loop``s
-  (``_snappy_pass1``, ``_hybrid_pass1``): one thread per page row walks the
-  snappy tokens or the RLE/bit-packed runs and writes a compact table.
+- ``snappy_walk`` (W1) is the snappy token walk that the JAX package
+  writes as a vmapped ``while_loop`` (``_snappy_pass1``): one block per
+  page row chases the token headers through a shared-memory window and
+  writes the compact token table.
+- ``hybrid_decode`` (W2) decodes RLE/bit-packed hybrid streams to values
+  in one call: the run-header walk of ``_hybrid_pass1`` (the same windowed
+  chase, into a compact run table) and the per-slot expansion of
+  ``_rle_hybrid``, two launches from one source.
 
 The CUDA source is ``csrc/parquet_decode.cu`` (its header gives the bounds
 and the design).  ``kernels/nvcc.py`` compiles it for ``sm_90a`` into
@@ -16,10 +20,13 @@ and the design).  ``kernels/nvcc.py`` compiles it for ``sm_90a`` into
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
-Every launch adds one to the counter ``kernel.<wrapper name>`` of
-``utils.tracing``.  The plain versions of W1 and W2 are Python loops over
-pages and tokens (or runs) that do the JAX package's 32-bit arithmetic with
-its wrap-around, so a torn page walks the same way everywhere.
+Every wrapper call that launches adds one to the counter
+``kernel.<wrapper name>`` of ``utils.tracing``.  The plain walks
+(``snappy_walk_plain``, ``hybrid_walk_plain``) are Python loops over pages
+and tokens (or runs) that do the JAX package's 32-bit arithmetic with its
+wrap-around, so a torn page walks the same way everywhere; the torch
+helpers below them (``last_mark`` and its kin) are the plain expansion's
+building blocks, which ``ops/parquet_decode.py`` shares.
 """
 
 from __future__ import annotations
@@ -35,8 +42,10 @@ from . import nvcc
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "srjt_plain_gather": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
-    "srjt_snappy_walk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "srjt_hybrid_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "srjt_snappy_walk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "srjt_hybrid_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                           _P],
+    "srjt_hop_probe": [_I, _P, _P],
 }
 
 
@@ -47,7 +56,7 @@ def build(verbose: bool = False) -> dict:
 
 def launches(name: str) -> int:
     """Launch count of wrapper ``name`` ("plain_gather", "snappy_walk" or
-    "hybrid_walk") since the counters were last reset."""
+    "hybrid_decode") since the counters were last reset."""
     return tracing.counter_value("kernel." + name)
 
 
@@ -80,6 +89,61 @@ def _w32(x: int) -> int:
 
 def _clip(x: int, lo: int, hi: int) -> int:
     return lo if x < lo else (hi if x > hi else x)
+
+
+_M32 = 0xFFFFFFFF
+
+
+# -- torch building blocks of the plain versions ----------------------------
+
+def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(t, idx, axis=1)`` (idx broadcast over t's rows)."""
+    if idx.shape[0] != t.shape[0]:
+        idx = idx.expand(t.shape[0], -1)
+    return torch.gather(t, 1, idx.to(torch.int64))
+
+
+def scatter_drop(width: int, fill: int, idx: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """``full((R, width), fill).at[row, idx].set(vals, mode="drop")`` with
+    JAX's index rules (a negative index counts from the end; anything still
+    outside ``[0, width)`` is dropped), without a host sync: dropped writes
+    go to a spare column that is cut off."""
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + width, idx)
+    idx = torch.where((idx >= 0) & (idx < width), idx,
+                      torch.full_like(idx, width))
+    out = torch.full((idx.shape[0], width + 1), fill, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_(1, idx, vals)[:, :width]
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum along each row of ``x[R, W]``.
+
+    Taken over the flattened planes and rebased per row: the planes are a
+    few rows of up to millions of slots, and a scan along a short innermost
+    dimension runs one row per block, which leaves most of a GPU idle."""
+    r, w = x.shape
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=torch.int32).view(r, w)
+    base = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    return flat - base[:, None]
+
+
+def last_mark(mark: torch.Tensor) -> torch.Tensor:
+    """``clip(cummax(mark, dim=1), 0, W - 1)`` for the mark planes of the
+    two walks, where every non-negative entry holds its own slot index (or,
+    in the last slot only, more): the last marked slot at or before each
+    slot, 0 where there is none.  Computed as a prefix count of the marks,
+    a scatter of each marked slot to its rank and a gather, which is the
+    same integers without ``cummax``'s pass over (value, index) pairs."""
+    r, w = mark.shape
+    marked = mark >= 0
+    cnt = row_cumsum(marked)
+    iota = torch.arange(w, dtype=torch.int32, device=mark.device).expand(r, w)
+    pos = scatter_drop(w, 0, torch.where(marked, cnt - 1, w), iota)
+    last = gather_rows(pos, (cnt - 1).clamp(min=0))
+    return torch.where(cnt > 0, last, torch.zeros_like(last))
 
 
 # -- K3: PLAIN gather + word assembly ---------------------------------------
@@ -186,17 +250,17 @@ def snappy_walk(comp: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor,
         raise ValueError("snappy_walk: comp, clen and ulen disagree on rows")
     if not _on_cuda(comp, "snappy_walk"):
         return snappy_walk_plain(comp, clen, ulen, ub, tb)
-    dk = torch.full((r, tb), ub, dtype=torch.int32, device=dev)
-    ls = torch.zeros((r, tb), dtype=torch.int32, device=dev)
-    co = torch.zeros((r, tb), dtype=torch.int32, device=dev)
+    # the kernel writes every entry, the unused ones included
+    dk, ls, co = (torch.empty((r, tb), dtype=torch.int32, device=dev)
+                  for _ in range(3))
     if r:
         _launch("snappy_walk", dev, comp.data_ptr(), clen.data_ptr(),
-                ulen.data_ptr(), r, cb, tb, dk.data_ptr(), ls.data_ptr(),
+                ulen.data_ptr(), r, cb, tb, ub, dk.data_ptr(), ls.data_ptr(),
                 co.data_ptr())
     return dk, ls, co
 
 
-# -- W2: RLE / bit-packed hybrid run walk ------------------------------------
+# -- W2: RLE / bit-packed hybrid decode ---------------------------------------
 
 def hybrid_walk_plain(data: torch.Tensor, start: torch.Tensor,
                       end: torch.Tensor, bw: torch.Tensor, n: torch.Tensor,
@@ -248,29 +312,80 @@ def hybrid_walk_plain(data: torch.Tensor, start: torch.Tensor,
                  for a in (mark, pk, bb, rv))
 
 
-def hybrid_walk(data: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
-                bw: torch.Tensor, n: torch.Tensor, vb: int):
-    """Walk the run headers of one RLE/bit-packed hybrid stream per row of
-    ``data uint8[R, UB]``: bytes ``[start, end)``, bit width ``bw``, ``n``
-    values (all int32[R]) -> ``(mark, pk, bb, rv)`` [R, vb]; see
-    ``hybrid_walk_plain``."""
+def hybrid_decode_plain(data: torch.Tensor, start: torch.Tensor,
+                        end: torch.Tensor, bw: torch.Tensor, n: torch.Tensor,
+                        vb: int) -> torch.Tensor:
+    """The plain version of W2: ``hybrid_walk_plain``'s run planes, then
+    each value slot takes its run (``last_mark``, the JAX ``cummax``) and
+    extracts its bits, as ``_rle_hybrid`` of the JAX package does."""
+    r, ub = data.shape
+    mark, pk, bb, rv = hybrid_walk_plain(data, start, end, bw, n, vb)
+    ridc = last_mark(mark)  # each value slot's run
+    pk2 = gather_rows(pk, ridc)
+    bb2 = gather_rows(bb, ridc)
+    rv2 = gather_rows(rv, ridc).to(torch.int64) & _M32
+    iota = torch.arange(vb, dtype=torch.int32, device=data.device)[None, :]
+    bit = bb2 + (iota - ridc) * bw[:, None]                 # int32, wraps
+    byte0 = bit >> 3
+    sh = (bit & 7).to(torch.int64)
+    by = [gather_rows(data, (byte0 + k).clamp(0, ub - 1)).to(torch.int64)
+          for k in range(5)]
+    lo = by[0] | by[1] << 8 | by[2] << 16 | by[3] << 24
+    # straddle byte: (hi << (32 - sh)) is taken mod 32 and selected away at
+    # sh == 0, as in the JAX package
+    hi = torch.where(sh == 0, torch.zeros_like(lo),
+                     (by[4] << ((32 - sh) & 31)) & _M32)
+    bw64 = bw.to(torch.int64)
+    bwm = torch.where(bw64 >= 32, torch.full_like(bw64, _M32),
+                      ((1 << bw64.clamp(max=31)) - 1) & _M32)
+    val = ((lo >> sh) | hi) & bwm[:, None]
+    val = torch.where(pk2, val, rv2)
+    return torch.where(iota < n[:, None], val, torch.zeros_like(val))
+
+
+def hybrid_decode(data: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+                  bw: torch.Tensor, n: torch.Tensor, vb: int) -> torch.Tensor:
+    """Decode one RLE/bit-packed hybrid stream per row of ``data
+    uint8[R, UB]``: bytes ``[start, end)``, bit width ``bw``, ``n`` values
+    (all int32[R]) -> int64[R, vb] holding u32 values, zero at slots
+    ``>= n``; see ``hybrid_decode_plain``.  On the card: the run walk, then
+    the expansion (two launches, one count)."""
     dev = data.device
     _check(data, "data", torch.uint8, 2, dev)
     for t, what in ((start, "start"), (end, "end"), (bw, "bw"), (n, "n")):
         _check(t, what, torch.int32, 1, dev)
         if t.shape[0] != data.shape[0]:
-            raise ValueError(f"hybrid_walk: {what} disagrees on rows")
+            raise ValueError(f"hybrid_decode: {what} disagrees on rows")
     r, ub = data.shape
     if ub < 1 or vb < 1:
-        raise ValueError("hybrid_walk: empty rows")
-    if not _on_cuda(data, "hybrid_walk"):
-        return hybrid_walk_plain(data, start, end, bw, n, vb)
-    mark = torch.full((r, vb), -1, dtype=torch.int32, device=dev)
-    pk = torch.zeros((r, vb), dtype=torch.bool, device=dev)
-    bb = torch.zeros((r, vb), dtype=torch.int32, device=dev)
-    rv = torch.zeros((r, vb), dtype=torch.int32, device=dev)
+        raise ValueError("hybrid_decode: empty rows")
+    if not _on_cuda(data, "hybrid_decode"):
+        return hybrid_decode_plain(data, start, end, bw, n, vb)
+    out = torch.empty((r, vb), dtype=torch.int64, device=dev)
+    # a rising walk writes at most one run a slot and one a stream byte
+    cap = min(vb, ub)
+    tbl = torch.empty((r, cap), dtype=torch.int64, device=dev)
+    meta = torch.empty((r, 2), dtype=torch.int32, device=dev)
     if r:
-        _launch("hybrid_walk", dev, data.data_ptr(), start.data_ptr(),
-                end.data_ptr(), bw.data_ptr(), n.data_ptr(), r, ub, vb,
-                mark.data_ptr(), pk.data_ptr(), bb.data_ptr(), rv.data_ptr())
-    return mark, pk, bb, rv
+        _launch("hybrid_decode", dev, data.data_ptr(), start.data_ptr(),
+                end.data_ptr(), bw.data_ptr(), n.data_ptr(), r, ub, vb, cap,
+                tbl.data_ptr(), meta.data_ptr(), out.data_ptr())
+    return out
+
+
+# -- the walks' chain step, for timing -------------------------------------
+
+def hop_probe(hops: int, device="cuda") -> torch.Tensor:
+    """Launch the chain probe on the card: one thread follows ``hops``
+    next-pointers through a shared-memory table, one dependent load a hop,
+    which is what a windowed walk pays a header while it takes one hop a
+    load.  Time it to get the cost of a hop.  No decode launches it, so it
+    has no launch counter and no plain version."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or hops < 1:
+        raise ValueError(f"hop_probe: needs a CUDA device and hops >= 1, "
+                         f"got {dev} and {hops}")
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    nvcc.launch("parquet_decode", _SIGNATURES, "srjt_hop_probe", dev, hops,
+                out.data_ptr())
+    return out

@@ -8,15 +8,15 @@ turns them into bucket-padded columns on the device.  The steps, as in the
 JAX package:
 
 - **snappy** raw-block decompression in two passes: W1 walks the token
-  headers of each page (one CUDA thread per page, ``kernels/
+  headers of each page (one CUDA block per page, ``kernels/
   parquet_decode.py::snappy_walk``) into a compact token table; then, in
   parallel over output bytes, a prefix count finds each byte's token (the
   JAX package's ``cummax``) and a pointer-doubling chase resolves
   back-references (skipped when the host's
   token scan found no copies, ``has_copies=False``).
 - **RLE/bit-packed hybrid** streams (def levels, dictionary indices): W2
-  walks the run headers (``hybrid_walk``), then each value slot extracts
-  its bits in parallel.
+  (``hybrid_decode``) walks the run headers and expands the runs to one
+  value per slot, in one call.
 - **PLAIN** fixed-width values: K3 gathers each value's bytes at its slot
   offset and assembles the word in one pass (``plain_gather``); BOOLEAN
   unpacks bits in torch.  Dictionary pages go through the same K3 and the
@@ -41,6 +41,8 @@ from .. import device as _device
 from ..columnar import Column, Table
 from ..dtypes import DType, TypeId
 from ..kernels import parquet_decode as kern
+from ..kernels.parquet_decode import (gather_rows, last_mark, row_cumsum,
+                                      scatter_drop)
 from ..utils.tracing import traced
 
 #: floor for the per-page byte/value buckets
@@ -48,7 +50,6 @@ MIN_BUCKET = 128
 
 _I32 = torch.int32
 _I64 = torch.int64
-_M32 = 0xFFFFFFFF
 
 
 def bucket(n: int, floor: int = MIN_BUCKET) -> int:
@@ -103,56 +104,6 @@ class ChunkGeom:
         raise KeyError(name)
 
 
-def _gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``take_along_axis(t, idx, axis=1)`` (idx broadcast over t's rows)."""
-    if idx.shape[0] != t.shape[0]:
-        idx = idx.expand(t.shape[0], -1)
-    return torch.gather(t, 1, idx.to(_I64))
-
-
-def _scatter_drop(width: int, fill: int, idx: torch.Tensor,
-                  vals: torch.Tensor) -> torch.Tensor:
-    """``full((R, width), fill).at[row, idx].set(vals, mode="drop")`` with
-    JAX's index rules (a negative index counts from the end; anything still
-    outside ``[0, width)`` is dropped), without a host sync: dropped writes
-    go to a spare column that is cut off."""
-    idx = idx.to(_I64)
-    idx = torch.where(idx < 0, idx + width, idx)
-    idx = torch.where((idx >= 0) & (idx < width), idx,
-                      torch.full_like(idx, width))
-    out = torch.full((idx.shape[0], width + 1), fill, dtype=vals.dtype,
-                     device=vals.device)
-    return out.scatter_(1, idx, vals)[:, :width]
-
-
-def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 prefix sum along each row of ``x[R, W]``.
-
-    Taken over the flattened planes and rebased per row: the planes are a
-    few rows of up to millions of slots, and a scan along a short innermost
-    dimension runs one row per block, which leaves most of a GPU idle."""
-    r, w = x.shape
-    flat = torch.cumsum(x.reshape(-1), 0, dtype=_I32).view(r, w)
-    base = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
-    return flat - base[:, None]
-
-
-def _last_mark(mark: torch.Tensor) -> torch.Tensor:
-    """``clip(cummax(mark, dim=1), 0, W - 1)`` for the mark planes of the
-    two walks, where every non-negative entry holds its own slot index (or,
-    in the last slot only, more): the last marked slot at or before each
-    slot, 0 where there is none.  Computed as a prefix count of the marks,
-    a scatter of each marked slot to its rank and a gather, which is the
-    same integers without ``cummax``'s pass over (value, index) pairs."""
-    r, w = mark.shape
-    marked = mark >= 0
-    cnt = _row_cumsum(marked)
-    iota = torch.arange(w, dtype=_I32, device=mark.device).expand(r, w)
-    pos = _scatter_drop(w, 0, torch.where(marked, cnt - 1, w), iota)
-    last = _gather(pos, (cnt - 1).clamp(min=0))
-    return torch.where(cnt > 0, last, torch.zeros_like(last))
-
-
 # -- snappy ---------------------------------------------------------------------
 
 def _snappy_decompress(comp, clen, ulen, ub: int, has_copies: bool,
@@ -160,25 +111,25 @@ def _snappy_decompress(comp, clen, ulen, ub: int, has_copies: bool,
     """``comp[R, CB]`` snappy pages -> ``uint8[R, UB]`` uncompressed planes."""
     r, cb = comp.shape
     dk, ls, co = kern.snappy_walk(comp, clen, ulen, ub, tb)
-    lsrc = _scatter_drop(ub, 0, dk, ls)
-    coff = _scatter_drop(ub, 0, dk, co)
+    lsrc = scatter_drop(ub, 0, dk, ls)
+    coff = scatter_drop(ub, 0, dk, co)
     iota = torch.arange(ub, dtype=_I32, device=comp.device)[None, :]
     # each output byte's token: the last token start at or before it
-    tidc = _last_mark(_scatter_drop(ub, -1, dk, dk))
-    lit = _gather(lsrc, tidc)
+    tidc = last_mark(scatter_drop(ub, -1, dk, dk))
+    lit = gather_rows(lsrc, tidc)
     if has_copies:
         # pointer-doubling chase: literal positions are fixed points, copy
         # positions point strictly backwards, so bit_length(ub) rounds
         # resolve every chain (overlapping copies included)
-        off = _gather(coff, tidc)
+        off = gather_rows(coff, tidc)
         ptr = torch.where(off == 0, iota, (iota - off).clamp(0, ub - 1))
         ptr = ptr.expand(r, ub).contiguous()
         for _ in range(int(ub).bit_length()):
-            ptr = _gather(ptr, ptr)
-        src = _gather(lit, ptr) + (ptr - _gather(tidc, ptr))
+            ptr = gather_rows(ptr, ptr)
+        src = gather_rows(lit, ptr) + (ptr - gather_rows(tidc, ptr))
     else:
         src = lit + (iota - tidc)
-    out = _gather(comp, src.clamp(0, cb - 1))
+    out = gather_rows(comp, src.clamp(0, cb - 1))
     return torch.where(iota < ulen[:, None], out, torch.zeros_like(out))
 
 
@@ -201,31 +152,9 @@ def _rle_hybrid(data, start, end, bw, n, vb: int) -> torch.Tensor:
 
     ``data[R, UB]`` page planes; ``start``/``end`` byte ranges, ``bw`` bit
     widths and ``n`` value counts are int32[R] (for dictionary indices the
-    width byte itself lives in the page payload).
+    width byte itself lives in the page payload).  One W2 call.
     """
-    r, ub = data.shape
-    mark, pk, bb, rv = kern.hybrid_walk(data, start, end, bw, n, vb)
-    ridc = _last_mark(mark)  # each value slot's run
-    pk2 = _gather(pk, ridc)
-    bb2 = _gather(bb, ridc)
-    rv2 = _gather(rv, ridc).to(_I64) & _M32
-    iota = torch.arange(vb, dtype=_I32, device=data.device)[None, :]
-    bit = bb2 + (iota - ridc) * bw[:, None]                 # int32, wraps
-    byte0 = bit >> 3
-    sh = (bit & 7).to(_I64)
-    by = [_gather(data, (byte0 + k).clamp(0, ub - 1)).to(_I64)
-          for k in range(5)]
-    lo = by[0] | by[1] << 8 | by[2] << 16 | by[3] << 24
-    # straddle byte: (hi << (32 - sh)) is taken mod 32 and selected away at
-    # sh == 0, as in the JAX package
-    hi = torch.where(sh == 0, torch.zeros_like(lo),
-                     (by[4] << ((32 - sh) & 31)) & _M32)
-    bw64 = bw.to(_I64)
-    bwm = torch.where(bw64 >= 32, torch.full_like(bw64, _M32),
-                      ((1 << bw64.clamp(max=31)) - 1) & _M32)
-    val = ((lo >> sh) | hi) & bwm[:, None]
-    val = torch.where(pk2, val, rv2)
-    return torch.where(iota < n[:, None], val, torch.zeros_like(val))
+    return kern.hybrid_decode(data, start, end, bw, n, vb)
 
 
 # -- PLAIN values ---------------------------------------------------------------
@@ -238,7 +167,7 @@ def _plain_gather(unc, voff, nn, dtype: DType) -> torch.Tensor:
     if dtype.id == TypeId.BOOL8:
         r, ub = unc.shape
         nnc = nn.clamp(min=0)
-        byte = _gather(unc, (voff[:, None] + (nnc >> 3)).clamp(0, ub - 1))
+        byte = gather_rows(unc, (voff[:, None] + (nnc >> 3)).clamp(0, ub - 1))
         return ((byte.to(_I32) >> (nnc & 7)) & 1).to(torch.uint8)
     return kern.plain_gather(unc, voff.contiguous(), nn.contiguous(),
                              dtype.storage.itemsize)
@@ -275,7 +204,7 @@ def _decode_column(p: dict, g: ColumnGeom, rb: int):
         ones = torch.ones(npages, dtype=_I32, device=dev)
         lv = _rle_hybrid(dunc, 4 * ones, voff, ones, nv_d, vb)
         valid = (lv == g.max_def) & (iota_v < nv_d[:, None])
-        nn = _row_cumsum(valid) - 1
+        nn = row_cumsum(valid) - 1
         nnon = nn[:, -1] + 1
     else:
         voff = torch.zeros(npages, dtype=_I32, device=dev)
@@ -291,9 +220,9 @@ def _decode_column(p: dict, g: ColumnGeom, rb: int):
                               torch.zeros(1, dtype=_I32, device=dev),
                               iota_d[None, :], g.dtype)[0]
         dvals = torch.where(iota_d < nv[0], dvals, torch.zeros_like(dvals))
-        bw = _gather(dunc, voff.clamp(0, g.ub - 1)[:, None])[:, 0].to(_I32)
+        bw = gather_rows(dunc, voff.clamp(0, g.ub - 1)[:, None])[:, 0].to(_I32)
         idx = _rle_hybrid(dunc, voff + 1, ulen_d, bw, nnon, vb)
-        slot = _gather(idx, nn.clamp(0, vb - 1)).to(_I32)
+        slot = gather_rows(idx, nn.clamp(0, vb - 1)).to(_I32)
         dense = dvals[slot.clamp(0, g.db - 1).to(_I64)]
 
     dense = torch.where(valid, dense, torch.zeros_like(dense))

@@ -10,9 +10,9 @@
   one compile per chunk geometry, so its geometries are kept few and small.
 - The plain versions of the kernels against the JAX functions they replace:
   K3 (``plain_gather``) against ``assemble_u32`` run through the Pallas
-  interpreter and against ``_plain_gather``; W1 (``snappy_walk``) and W2
-  (``hybrid_walk``) against ``_snappy_pass1`` and ``_hybrid_pass1``, on real
-  and on torn (random) pages.
+  interpreter and against ``_plain_gather``; W1 (``snappy_walk``) and W2's
+  walk (``hybrid_walk_plain``) against ``_snappy_pass1`` and
+  ``_hybrid_pass1``, on real and on torn (random) pages.
 - ``TruncatedPageError`` and the fallback reasons.
 
 The port runs on the CPU (``device="cpu"``), where every kernel wrapper
@@ -246,18 +246,11 @@ def test_k3_plain_matches_plain_gather(dtype):
 
 def _snappy_planes(golden):
     """Page planes of real snappy pages (literal-only and copy-bearing)
-    plus torn rows: random bytes and a truncated compressed length."""
-    chunk, _ = ppq.plan_device_group(
-        ppq.ParquetFile(golden / "copies.parquet"), 0, None, 1 << 30, CPU)
-    g = chunk.geom.columns[0]
-    p = chunk.planes[g.name]
-    rng = np.random.default_rng(17)
-    torn = rng.integers(0, 256, (2, p["comp"].shape[1]), dtype=np.uint8)
-    comp = np.concatenate([p["comp"], torn])
-    clen = np.concatenate([p["clen"], [p["comp"].shape[1], 9]])
-    ulen = np.concatenate([p["ulen"], [g.ub, g.ub]])
-    clen[1] = clen[1] // 2  # a page cut short
-    return comp, clen.astype(np.int32), ulen.astype(np.int32), g
+    plus torn rows (``chip_smoke.snappy_torn_set``, W1's torn set on the
+    card): random bytes, a truncated compressed length, a page cut short,
+    a literal that leaves the kernel's window and a chain of literals that
+    each leave it."""
+    return chip_smoke.snappy_torn_set(golden / "copies.parquet", CPU)
 
 
 def test_w1_plain_matches_snappy_pass1(golden):
@@ -270,10 +263,18 @@ def test_w1_plain_matches_snappy_pass1(golden):
     dk, ls, co = pqk.snappy_walk(torch.from_numpy(comp),
                                  torch.from_numpy(clen),
                                  torch.from_numpy(ulen), ub, tb)
-    got = (ppd._scatter_drop(ub, -1, dk, dk), ppd._scatter_drop(ub, 0, dk, ls),
-           ppd._scatter_drop(ub, 0, dk, co))
+    got = (pqk.scatter_drop(ub, -1, dk, dk), pqk.scatter_drop(ub, 0, dk, ls),
+           pqk.scatter_drop(ub, 0, dk, co))
     for w, x in zip(want, got):
         np.testing.assert_array_equal(_np(w), x.numpy())
+    assert comp.shape[1] > 2048  # pages longer than the kernel's window
+    # the literal row leaves the window at its first token
+    assert int(ls[-2, 0]) == 5 and int(dk[-2, 1]) == 3000
+    # the chain row: 3-byte preamble, three 10-byte literals, 40 literals of
+    # 2,100 bytes, five 8-byte copies, 3 more long literals, two short ones
+    assert int(ls[-1, 3]) == 3 + 3 * 11 + 3
+    assert int(dk[-1, 52]) == 30 + 43 * 2100 + 5 * 8 + 10
+    assert int(dk[-1, 53]) == ub
     # and the whole decompression, chase included
     dec = jax.jit(jpd._snappy_decompress, static_argnums=(3, 4, 5))
     np.testing.assert_array_equal(
@@ -320,7 +321,7 @@ def test_w2_plain_matches_hybrid_pass1():
     walk = jax.jit(jax.vmap(jpd._hybrid_pass1, in_axes=(0, 0, 0, 0, 0, None)),
                    static_argnums=5)
     want = walk(*[jnp.asarray(a) for a in args], vb)
-    got = pqk.hybrid_walk(*[torch.from_numpy(a) for a in args], vb)
+    got = pqk.hybrid_walk_plain(*[torch.from_numpy(a) for a in args], vb)
     for w, x in zip(want, got):  # rv: u32 in JAX, its bits in int32 here
         w = _np(w)
         np.testing.assert_array_equal(w.view(x.numpy().dtype), x.numpy())
