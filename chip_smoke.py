@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (spark_rapids_jni_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives a Spark stage end to end on the card, and scans
-NDS-shaped Parquet files on the card for q5-lite.
+NDS-shaped Parquet files on the card for q5-lite, hand-wired and as an
+engine plan.
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
@@ -57,9 +58,26 @@ Phases (any failed check raises, and the script exits non-zero):
             each (cold, warm), against a numpy oracle (counts exact, sums
             within rel 1e-9); the K3/W1/W2 launch counters are zeroed
             before the warm device run and must be above zero after it.
+9. engine   the same query as a plan (tests/test_engine_e2e.py::q5_plan,
+            the fact Scan with chunk_bytes = 64 MiB) through the port's
+            engine: optimize (the date filter must reach the fact scan's
+            pruning predicate), then execute by the device route (the
+            default on a card: each chunk's pages decode inside the fused
+            segment) and the host route (config.device_decode = False),
+            cold and warm, against the oracle; row groups pruned, no
+            device-decode fallback on the fact file, K3/W1/W2 launched by
+            the engine's warm device route (counters zeroed just before
+            it); the interpreted loop (fused=False) decoding every chunk on
+            the card too; PlanCache identity for a plan
+            rebuilt from its bytes; the synchronising CUDA calls of one warm
+            device-route execute (set_sync_debug_mode("warn")) at 4 and 7
+            row groups read, which must not grow with the chunks; a profile
+            per route; and the explain_analyze text, its ceiling this card's
+            copy rate (the kernels phase's library time).
 
-Output: one JSON line per phase, the card's name and power limit as
-nvidia-smi reports them, a {"kernels": [...]} line, and last
+Output: one JSON line per phase (the engine's after its explain text), the
+card's name and power limit as nvidia-smi reports them, a
+{"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the port's
 package beside it, the script fails before printing any result.
 """
@@ -136,8 +154,10 @@ def wall(torch, fn):
     return out, time.perf_counter() - t0
 
 
+# the port's record_function ranges on q5's paths, hand-wired and engine
 TRACED = ("decode_table", "left_semi_join", "groupby", "inner_join",
-          "xxhash64")  # the port's record_function ranges on q5's path
+          "xxhash64", "groupby_padded", "engine.fused_segment",
+          "engine.aggregate", "engine.join")
 
 
 def profile_top(torch, fn, top: int = 10) -> dict:
@@ -1399,6 +1419,208 @@ def phase_q5(torch, root, fact, dates, stores, pqk, tracing) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. q5-lite as an engine plan: optimize, then execute by both routes
+# ---------------------------------------------------------------------------
+
+Q5_TWO_YEARS = (2451545, 2452275)  # 2000-2001: 7 of 16 groups read
+DECODE_KERNELS = ("plain_gather", "snappy_walk", "hybrid_decode")
+
+
+def q5_engine_plan(root, date_lo: int, date_hi: int):
+    """tests/test_engine_e2e.py::q5_plan over the script's files: the date
+    filter sits ABOVE the semi join, so the optimizer has to split it,
+    sink it onto the fact side and feed the scan predicate."""
+    from spark_rapids_jni_tpu_torch.engine import (Aggregate, Filter, Join,
+                                                   Scan, col, lit)
+    root = Path(root)
+    between = ("&", (">=", col("ss_sold_date_sk"), lit(date_lo)),
+               ("<=", col("ss_sold_date_sk"), lit(date_hi)))
+    dates_f = Filter(Scan(root / "date_dim.parquet"),
+                     ("&", (">=", col("d_date_sk"), lit(date_lo)),
+                      ("<=", col("d_date_sk"), lit(date_hi))))
+    sales = Scan(root / "store_sales.parquet", chunk_bytes=64 << 20)
+    kept = Filter(Join(sales, dates_f, ["ss_sold_date_sk"], ["d_date_sk"],
+                       how="semi"), between)
+    totals = Aggregate(kept, ["ss_store_sk"],
+                       [("ss_ext_sales_price", "sum"),
+                        ("ss_net_profit", "sum"),
+                        ("ss_ext_sales_price", "count")],
+                       names=["sales", "profit", "n"])
+    joined = Join(totals, Scan(root / "store.parquet"),
+                  ["ss_store_sk"], ["s_store_sk"], how="inner")
+    return Aggregate(joined, ["s_store_name"],
+                     [("sales", "sum"), ("profit", "sum"), ("n", "sum")],
+                     names=["sales", "profit", "n"])
+
+
+def engine_result(table) -> dict:
+    return {nm: (s, p, int(n)) for nm, s, p, n in zip(
+        table["s_store_name"].to_pylist(), table["sales"].to_pylist(),
+        table["profit"].to_pylist(), table["n"].to_pylist())}
+
+
+def count_syncs(torch, fn):
+    """The synchronising CUDA calls ``fn`` makes, from every thread, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: their count
+    and the Python lines that made them (file:line -> count)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message))
+    return sum(sites.values()), dict(sites)
+
+
+def phase_engine(torch, root, fact, dates, stores, pqk, tracing, q5,
+                 copy_gbps: float) -> dict:
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.engine.plan import topo_nodes
+    from spark_rapids_jni_tpu_torch.utils.config import config
+    n_fact = len(fact[0][2])
+    want = q5_oracle(fact, dates, stores, *Q5_DATES)
+    out = {"phase": "engine", "dates": list(Q5_DATES), "fact_rows": n_fact}
+
+    plan = q5_engine_plan(root, *Q5_DATES)
+    t0 = time.perf_counter()
+    opt = pe.optimize(plan)
+    out["optimize_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pe.optimize(q5_engine_plan(root, *Q5_DATES))
+    out["optimize_warm_ms"] = (time.perf_counter() - t0) * 1e3
+    fact_scan = [n for n in topo_nodes(opt) if isinstance(n, pe.Scan)
+                 and n.path.endswith("store_sales.parquet")][0]
+    out["scan_predicate"] = list(fact_scan.predicate)
+    out["scan_columns"] = list(fact_scan.columns)
+    check(fact_scan.predicate == ("ss_sold_date_sk", *Q5_DATES),
+          "the date filter reached the fact scan's pruning predicate")
+
+    def run(route, p=opt, stats=None, fused=None):
+        # the device route is the default on a card; the host route is
+        # pinned for the comparison
+        config.device_decode = None if route == "device" else False
+        try:
+            return pe.execute(p, stats=stats, fused=fused, device=DEV)
+        finally:
+            config.device_decode = None
+
+    for route in ("device", "host"):
+        rec = {}
+        for rep in ("cold", "warm"):
+            stats = pe.new_stats()
+            tracing.reset_counters("engine.segment.")
+            f0 = tracing.counter_value("io.device_decode.fallbacks")
+            if rep == "warm" and route == "device":
+                tracing.reset_counters("kernel.")
+            result, secs = wall(torch, lambda: run(route, stats=stats))
+            if rep == "warm" and route == "device":
+                out["launches"] = {k: pqk.launches(k)
+                                   for k in DECODE_KERNELS}
+            check(q5_matches(engine_result(result), want),
+                  f"engine q5 by the {route} route ({rep}) == numpy oracle")
+            rec[rep] = {
+                "s": secs,
+                "stats": {k: stats[k] for k in (
+                    "row_groups_pruned", "row_groups_read", "chunks",
+                    "streamed", "fused_segments")},
+                "segment_compile": tracing.counter_value(
+                    "engine.segment.compile"),
+                "segment_replay": tracing.counter_value(
+                    "engine.segment.replay"),
+                "fallbacks": tracing.counter_value(
+                    "io.device_decode.fallbacks") - f0}
+            check(stats["row_groups_pruned"] > 0, "row groups were pruned")
+            check(stats["streamed"] and stats["fused_segments"] == 1,
+                  f"the {route} route streamed through one fused segment")
+            check(rec[rep]["fallbacks"] == 0,
+                  f"{route} route: no device-decode fallback on the fact "
+                  "file")
+        rec["file_rows_per_s"] = n_fact / rec["warm"]["s"]
+        out[route] = rec
+    dd = [d for d in opt._decisions if d["kind"] == "scan:device_decode"]
+    out["device_decode_ledger"] = dd[-1]
+    check(all(d["choice"] == "device" and d["host_chunks"] == 0
+              and not d["reasons"] for d in dd),
+          "every fact chunk decoded on the device (ledger)")
+    for name, count in out["launches"].items():
+        check(count > 0, f"the engine's device route launched {name}")
+
+    # the interpreted per-chunk loop (fused=False; also what a schema veto
+    # or the out-of-memory step down runs) decodes on the card too
+    tracing.reset_counters("kernel.")
+    stats = pe.new_stats()
+    result, out["interp_s"] = wall(
+        torch, lambda: run("device", stats=stats, fused=False))
+    check(q5_matches(engine_result(result), want),
+          "engine q5 by the interpreted device route == numpy oracle")
+    out["interp_launches"] = {k: pqk.launches(k) for k in DECODE_KERNELS}
+    check(all(out["interp_launches"][k] >= stats["chunks"] > 0
+              for k in DECODE_KERNELS),
+          "the interpreted device route decodes every chunk on the card")
+
+    # the plan cache: a plan rebuilt from its bytes is the same object
+    cache = pe.PlanCache()
+    first = cache.get(q5_engine_plan(root, *Q5_DATES))
+    r1 = engine_result(first.execute(device=DEV))
+    second = cache.get(pe.deserialize(
+        q5_engine_plan(root, *Q5_DATES).serialize()))
+    r2 = engine_result(second.execute(device=DEV))
+    check(second is first, "PlanCache returns the same CompiledPlan")
+    # the same answer: names and counts exact, sums within rel 1e-9 (the
+    # card's atomics add in no fixed order)
+    check(q5_matches(r1, want) and q5_matches(r2, r1),
+          "the cached plan gives the same answer")
+    out["plan_cache"] = cache.stats()
+
+    # host syncs of one warm device-route execute at 4 and 7 groups read
+    syncs = {}
+    for lo, hi in (Q5_DATES, Q5_TWO_YEARS):
+        p = pe.optimize(q5_engine_plan(root, lo, hi))
+        run("device", p)  # warm the segment and build caches
+        stats = pe.new_stats()
+        box = {}
+        n, sites = count_syncs(torch, lambda: box.update(
+            r=run("device", p, stats)))
+        check(q5_matches(engine_result(box["r"]),
+                         q5_oracle(fact, dates, stores, lo, hi)),
+              f"engine q5 over {lo}..{hi} == numpy oracle")
+        syncs[f"{lo}..{hi}"] = {"groups_read": stats["row_groups_read"],
+                                "chunks": stats["chunks"], "syncs": n,
+                                "sites": sites}
+    (a, b) = syncs.values()
+    out["syncs"] = syncs
+    emit({"phase": "engine_syncs", **syncs})
+    out["syncs_per_chunk"] = (b["syncs"] - a["syncs"]) / \
+        (b["chunks"] - a["chunks"])
+    check(b["chunks"] > a["chunks"] and b["syncs"] <= a["syncs"],
+          "the device route makes no host sync per streamed chunk")
+
+    for route in ("device", "host"):
+        out[route]["profile"] = profile_top(torch, lambda: run(route))
+    out["q5_hand_wired_warm_s"] = {r: q5[r]["warm_s"]
+                                   for r in ("device", "host")}
+
+    config.roofline_gbps = copy_gbps
+    try:
+        rep = pe.explain_analyze(q5_engine_plan(root, *Q5_DATES),
+                                 device=DEV)
+    finally:
+        config.roofline_gbps = 0.0
+    check(q5_matches(engine_result(rep.result), want),
+          "explain_analyze's result == numpy oracle")
+    out["roofline_gbps"] = copy_gbps
+    print(rep.text, flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
@@ -1483,6 +1705,13 @@ def main() -> int:
 
         q5 = phase_q5(torch, root, fact, dates, stores, pqk, tracing)
         emit(q5)
+        torch.cuda.empty_cache()
+
+        k1 = kernels["interleave_planes"]
+        copy_gbps = k1["bound_ms"] * HBM_BYTES_PER_S / k1["library_ms"] / 1e9
+        engine = phase_engine(torch, root, fact, dates, stores, pqk, tracing,
+                              q5, copy_gbps)
+        emit(engine)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1505,6 +1734,7 @@ def main() -> int:
         "source": pkg + "parquet_decode.cu",
         "replaces": jax_pkg + "parquet_decode.py:336",
         "launches": q5["launches"]["plain_gather"],
+        "engine_launches": engine["launches"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -1519,6 +1749,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": pkg + "parquet_decode.cu", "replaces": jax_pkg + ref,
             "launches": q5["launches"][name],
+            "engine_launches": engine["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

@@ -1,0 +1,319 @@
+"""EXPLAIN ANALYZE: execute a plan under a QueryMetrics and render the DAG.
+
+The port of ``spark_rapids_jni_tpu/engine/explain.py``.
+``explain_analyze(plan)`` optimizes the plan, runs it inside its own
+``utils.metrics.QueryMetrics`` context, and renders the optimized DAG as an
+indented tree where every node line carries the span the executor recorded
+for it (calls, wall time, rows in/out, chunk count, padded-row waste, bytes
+moved and GB/s), plus a footer with the execution stats, the cache
+attribution this query caused, the host-sync count and the optimizer's
+decision ledger.
+
+The roofline ceiling is ``config.roofline_gbps``, a bandwidth the caller
+measured on its own card; without one, node lines omit ``roofline_frac``.
+The JAX package's fallback to a figure pinned in a file has no counterpart.
+
+The report object keeps the structured form (``nodes``, ``summary``,
+``result``) so tests and tools can assert on totals instead of scraping
+the rendered text.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from .. import device as _device
+from ..columnar import Table
+from ..utils import metrics
+from .plan import (Aggregate, Exchange, Filter, Join, Limit, PlanNode,
+                   Project, Scan, Sort, TopK, node_label)
+
+def roofline_ceiling_gbps() -> Optional[float]:
+    """The device-bandwidth ceiling per-node GB/s is judged against:
+    ``config.roofline_gbps``, or None when it is not set."""
+    from ..utils.config import config
+    return config.roofline_gbps if config.roofline_gbps > 0 else None
+
+
+def _describe_scan(node: Scan) -> str:
+    bits = [repr(node.path)]
+    if node.columns:
+        bits.append(f"columns={list(node.columns)}")
+    if node.predicate is not None:
+        bits.append(f"predicate={node.predicate}")
+    if node.chunk_bytes:
+        bits.append(f"chunk_bytes={node.chunk_bytes}")
+    return f"Scan({', '.join(bits)})"
+
+
+#: plan-node class -> one-line logical description (the EXPLAIN half)
+_DESCRIBE = {
+    Scan: _describe_scan,
+    Filter: lambda n: f"Filter({n.predicate})",
+    Project: lambda n: f"Project({list(n.columns)})",
+    Join: lambda n: (f"Join(how={n.how!r}, {list(n.left_keys)} = "
+                     f"{list(n.right_keys)})"),
+    Aggregate: lambda n: (f"Aggregate(keys={list(n.keys)}, "
+                          f"aggs={[(c, op) for c, op in n.aggs]})"),
+    Sort: lambda n: f"Sort({list(n.keys)})",
+    Limit: lambda n: f"Limit({n.n})",
+    TopK: lambda n: f"TopK(n={n.n}, keys={list(n.keys)})",
+    Exchange: lambda n: ("Exchange(broadcast)" if n.kind == "broadcast"
+                         else f"Exchange(hash, keys={list(n.keys)})"),
+}
+
+
+def _describe(node: PlanNode) -> str:
+    fn = _DESCRIBE.get(type(node))
+    return fn(node) if fn is not None else type(node).__name__
+
+
+def _roofline(span: dict, ceiling: Optional[float]) -> dict:
+    """Derived per-node cost columns from a span's byte accounting:
+    ``bytes_moved`` (in + out, fused-segment bytes already attributed to
+    the segment root by the executor), ``GBps`` over the node's wall
+    time, and ``roofline_frac`` against the bandwidth ceiling."""
+    moved = int(span.get("bytes_in", 0)) + int(span.get("bytes_out", 0))
+    out = {"bytes_moved": moved, "GBps": None, "roofline_frac": None}
+    wall = span.get("wall_s") or 0.0
+    if moved and wall > 0:
+        gbps = moved / wall / 1e9
+        out["GBps"] = round(gbps, 3)
+        if ceiling:
+            out["roofline_frac"] = round(gbps / ceiling, 6)
+    return out
+
+
+def _est_bits(span: Optional[dict], node: Optional[PlanNode]) -> list:
+    """The cardinality-ledger columns: planner estimate + q-error.
+
+    ``est_rows`` prefers the span (the executor stamps it post-run) and
+    falls back to the optimizer's ``_est_rows`` plan attribute, so nodes
+    a fused segment swallowed (no span) still show their estimate;
+    unknown estimates render ``?`` rather than vanishing."""
+    est = None if span is None else span.get("est_rows")
+    if est is None and node is not None:
+        est = getattr(node, "_est_rows", None)
+    qe = None if span is None else span.get("q_error")
+    if qe is None and est is not None and span is not None:
+        qe = metrics.q_error(est, span.get("rows_out"))
+    return [f"est_rows={'?' if est is None else est}",
+            f"q_error={'?' if qe is None else format(qe, '.2f')}"]
+
+
+def _annotate(span: Optional[dict], ceiling: Optional[float] = None,
+              node: Optional[PlanNode] = None) -> str:
+    """The ANALYZE half: bracketed span fields for one node line."""
+    if span is None:
+        return "[not executed " + " ".join(_est_bits(None, node)) + "]"
+    bits = [f"calls={span['calls']}",
+            f"wall={span['wall_s'] * 1e3:.2f}ms",
+            f"rows_in={span['rows_in']}",
+            f"rows_out={span['rows_out']}"]
+    bits.extend(_est_bits(span, node))
+    if span["chunks"]:
+        bits.append(f"chunks={span['chunks']}")
+    if span["padded_rows"]:
+        bits.append(f"padded_waste={span['padded_rows']}")
+    if span["host_syncs"]:
+        bits.append(f"host_syncs={span['host_syncs']}")
+    rf = _roofline(span, ceiling)
+    if rf["bytes_moved"]:
+        bits.append(f"bytes_moved={rf['bytes_moved']}")
+        if rf["GBps"] is not None:
+            bits.append(f"GB/s={rf['GBps']:.3f}")
+        if rf["roofline_frac"] is not None:
+            bits.append(f"roofline_frac={rf['roofline_frac']:.6f}")
+    if span.get("decode"):
+        # device-decode routing verdict on a scan: which side decoded
+        # the pages, what the link carried vs what the host path would
+        # have shipped (link_ratio < 1 is the wire win)
+        bits.append(f"decode={span['decode']}")
+        link, unc = int(span.get("link_bytes", 0) or 0), \
+            int(span.get("unc_bytes", 0) or 0)
+        if link:
+            bits.append(f"link_bytes={link}")
+            if unc:
+                bits.append(f"link_ratio={link / unc:.3f}")
+    return "[" + " ".join(bits) + "]"
+
+
+def _decision_line(d: dict, actuals: dict) -> str:
+    """One footer line for one optimizer-ledger entry, scored against the
+    actual rows observed at the decision's node (when it executed)."""
+    bits = [d.get("kind", "?")]
+    path = d.get("path")
+    if path:
+        bits.append(f"path={path}")
+    for k in ("exchange", "inner", "n", "keys"):
+        v = d.get(k)
+        if v not in (None, [], ()):
+            bits.append(f"{k}={','.join(map(str, v))}"
+                        if isinstance(v, (list, tuple)) else f"{k}={v}")
+    if d.get("choice"):
+        bits.append(f"choice={d['choice']}")
+    act = actuals.get(path) if path else None
+    if act is not None:
+        bits.append(f"actual_rows={act}")
+    return " ".join(bits)
+
+
+@dataclass
+class ExplainReport:
+    """Structured EXPLAIN ANALYZE output; ``str(report)`` is the tree."""
+
+    text: str
+    nodes: list = field(default_factory=list)   # topo order, root last
+    summary: dict = field(default_factory=dict)  # QueryMetrics.summary()
+    result: Optional[Table] = None
+    decisions: list = field(default_factory=list)  # optimizer ledger
+
+    def __str__(self) -> str:
+        return self.text
+
+    @property
+    def total_chunks(self) -> int:
+        return sum(n["metrics"]["chunks"] for n in self.nodes
+                   if n["metrics"] is not None)
+
+
+def _render(root: PlanNode, spans: dict,
+            ceiling: Optional[float] = None) -> str:
+    lines: list[str] = []
+    seen: set[int] = set()
+
+    def walk(node: PlanNode, depth: int) -> None:
+        pad = "  " * depth
+        if id(node) in seen:
+            lines.append(f"{pad}{type(node).__name__} (shared, see above)")
+            return
+        seen.add(id(node))
+        lines.append(f"{pad}{_describe(node)}  "
+                     f"{_annotate(spans.get(id(node)), ceiling, node)}")
+        for child in node.children():
+            walk(child, depth + 1)
+
+    walk(root, 0)
+    return "\n".join(lines)
+
+
+def explain_analyze(plan: PlanNode, stats: Optional[dict] = None,
+                    fused: Optional[bool] = None,
+                    prefetch: Optional[int] = None,
+                    result_cache: bool = False,
+                    device=_device.DEFAULT) -> ExplainReport:
+    """Optimize + execute ``plan`` on ``device`` and report per-node
+    metrics.
+
+    ``fused``/``prefetch`` pass through to ``execute`` (so both executor
+    modes can be profiled on the same plan).  With ``config.metrics`` off
+    the plan still runs and the tree still renders, but node annotations
+    and the summary are empty.
+
+    ``result_cache=True`` routes through the result-set cache
+    (``engine.cache.RESULT_CACHE``, active only when
+    ``config.result_cache`` sets a capacity): a repeat of this plan over
+    unchanged input files serves the cached table without executing, and
+    the report says so in a ``serving:result_cache`` footer line and a
+    matching entry in ``report.decisions`` (never on ``plan._decisions``,
+    which describes plan structure).
+    """
+    from .executor import execute, new_stats
+    from .optimizer import optimize
+
+    opt = optimize(plan)
+    if stats is None:
+        stats = new_stats()
+    qm = None
+    serving: list = []
+    with metrics.query(f"explain:{node_label(opt)}") as q:
+        qm = q
+        out = version = None
+        if result_cache:
+            from .cache import RESULT_CACHE, data_version
+            if RESULT_CACHE.enabled:
+                fp = opt.fingerprint()
+                version = data_version(opt)
+                out = RESULT_CACHE.get(fp, version)
+                if out is not None:
+                    stats["served_from_cache"] = True
+                    serving.append({"kind": "serving:result_cache",
+                                    "choice": "served_from_cache",
+                                    "fingerprint": fp[:12]})
+        if out is None:
+            out = execute(opt, stats, fused=fused, prefetch=prefetch,
+                          device=device)
+            if version is not None:
+                from .cache import RESULT_CACHE
+                RESULT_CACHE.put(opt.fingerprint(), version, out)
+        if q is not None:
+            q.note_stats(stats)
+    spans = dict(qm.node_spans) if qm is not None else {}
+    summary = qm.summary() if qm is not None else {}
+
+    ceiling = roofline_ceiling_gbps()
+    from .plan import topo_nodes
+    nodes = [{"label": node_label(n),
+              "desc": _describe(n),
+              "est_rows": getattr(n, "_est_rows", None),
+              "metrics": None if id(n) not in spans else
+              {**spans[id(n)], **_roofline(spans[id(n)], ceiling)}}
+             for n in topo_nodes(opt)]
+
+    text = _render(opt, spans, ceiling)
+    if summary:
+        foot = [f"-- query {summary['name']} "
+                f"wall={summary['wall_s'] * 1e3:.2f}ms "
+                f"nodes={stats['nodes']} chunks={stats['chunks']} "
+                f"streamed={stats['streamed']} "
+                f"fused_segments={stats['fused_segments']}"]
+        if stats.get("exchanges"):
+            foot[0] += f" exchanges={stats['exchanges']}"
+        if ceiling:
+            foot[0] += f" roofline_ceiling_GBps={ceiling}"
+        mem = summary.get("memory")
+        if mem:
+            foot.append(
+                f"-- memory ({mem.get('source', 'census')}): "
+                f"live={mem.get('live_bytes', 0)} "
+                f"high_water={mem.get('high_water_bytes', 0)}")
+        cache_counters = {k: v for k, v in summary["counters"].items()
+                          if ".cache" in k or k == "engine.host_sync"}
+        if cache_counters:
+            foot.append("-- counters (this query): " + " ".join(
+                f"{k}={v}" for k, v in sorted(cache_counters.items())))
+        outcome = summary.get("outcome")
+        degr = summary.get("degradations")
+        if outcome or degr:
+            line = "-- outcome: " + (outcome or {}).get("status", "ok")
+            if (outcome or {}).get("kind"):
+                line += f" kind={outcome['kind']}"
+            if degr:
+                line += " degraded=" + ",".join(
+                    d.get("step", "?") for d in degr)
+            foot.append(line)
+        decisions = getattr(opt, "_decisions", None)
+        if decisions:
+            # the decision-ledger footer: one line per optimizer decision,
+            # scored against the actual rows the decision's node saw.
+            # verify.decision_census(opt) counts the same structural
+            # entries statically.
+            from .verify import node_paths
+            actuals = {p: spans[i].get("rows_out")
+                       for i, p in node_paths(opt).items() if i in spans}
+            foot.append(f"-- decisions ({len(decisions)}):")
+            for d in decisions:
+                foot.append("--   " + _decision_line(d, actuals))
+        if serving:
+            # how THIS call was served (cache hit), kept out of the
+            # optimizer ledger so ledger == decision_census still holds
+            foot.append(f"-- serving ({len(serving)}):")
+            for d in serving:
+                foot.append("--   " + _decision_line(d, {}))
+        text = text + "\n" + "\n".join(foot)
+    return ExplainReport(text=text, nodes=nodes, summary=summary,
+                         result=out,
+                         decisions=[dict(d) for d in
+                                    getattr(opt, "_decisions", None) or ()] +
+                         serving)

@@ -1,0 +1,566 @@
+"""Logical query-plan DAG with a stable serializable form.
+
+The reference repo sits *under* a query planner: Spark builds the plan and
+the JNI layer executes one op per call.  Flare (PAPERS.md) shows the win of
+shipping the whole plan to the native side instead, so this module gives the
+TPU engine its own logical plan: a small DAG of relational nodes
+(Scan/Filter/Project/Join/Aggregate/Sort/Limit) that the optimizer rewrites,
+the executor walks onto the existing ops/io layers, and the bridge ships in
+one ``PLAN_EXECUTE`` message.
+
+Design notes:
+
+- Nodes are frozen dataclasses with *identity* hashing (``eq=False``): the
+  same object appearing twice in a DAG is one node, executed once.
+- Filter predicates are a tiny expression language of nested tuples —
+  ``("col", name)``, ``("lit", value)``, and ``(op, a, b)`` for the
+  comparison/boolean ops in ``_EXPR_OPS`` — chosen because tuples serialize
+  to JSON losslessly and compare structurally.
+- ``serialize()`` emits canonical JSON (topological node list, integer ids,
+  sorted keys) so ``fingerprint()`` — the plan-cache key — is stable across
+  processes for structurally identical plans.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from dataclasses import dataclass, fields, replace
+from typing import Optional, Tuple
+
+PLAN_VERSION = 1
+
+#: comparison / boolean operators permitted in filter expressions
+_EXPR_OPS = {">=", "<=", ">", "<", "==", "!=", "&", "|"}
+
+JOIN_HOWS = ("inner", "left", "right", "full", "semi", "anti", "cross")
+
+EXCHANGE_KINDS = ("hash", "broadcast")
+
+#: aggregate ops the executor accepts (mirrors ops.aggregate)
+AGG_OPS = ("sum", "min", "max", "mean", "count", "count_all", "var", "std",
+           "sumsq", "fsum", "first", "last", "collect_list")
+
+#: aggregate ops whose result depends on input row ORDER — a hash Exchange
+#: does not preserve order, so the distributed planner never places one
+#: beneath an aggregate using these
+ORDER_SENSITIVE_AGGS = ("first", "last", "collect_list")
+
+
+# -- expression helpers ----------------------------------------------------
+
+def col(name: str) -> tuple:
+    """Reference to a column of the child relation."""
+    return ("col", str(name))
+
+
+def lit(value) -> tuple:
+    """Literal scalar (int/float/str/bool/None)."""
+    return ("lit", value)
+
+
+def expr_columns(expr) -> set:
+    """All column names referenced by an expression."""
+    if not isinstance(expr, tuple):
+        return set()
+    if expr[0] == "col":
+        return {expr[1]}
+    if expr[0] == "lit":
+        return set()
+    out = set()
+    for sub in expr[1:]:
+        out |= expr_columns(sub)
+    return out
+
+
+def _validate_expr(expr) -> None:
+    if not isinstance(expr, tuple) or not expr:
+        raise ValueError(f"expression must be a non-empty tuple, got {expr!r}")
+    head = expr[0]
+    if head == "col":
+        if len(expr) != 2 or not isinstance(expr[1], str):
+            raise ValueError(f"malformed col ref: {expr!r}")
+    elif head == "lit":
+        if len(expr) != 2:
+            raise ValueError(f"malformed literal: {expr!r}")
+    elif head == "not":
+        if len(expr) != 2:
+            raise ValueError(f"malformed not: {expr!r}")
+        _validate_expr(expr[1])
+    elif head in _EXPR_OPS:
+        if len(expr) != 3:
+            raise ValueError(f"operator {head!r} takes two operands: {expr!r}")
+        _validate_expr(expr[1])
+        _validate_expr(expr[2])
+    else:
+        raise ValueError(f"unknown expression op {head!r}")
+
+
+def _expr_to_json(expr):
+    return list(expr) if not isinstance(expr, tuple) else [
+        _expr_to_json(e) if isinstance(e, (tuple, list)) else e for e in expr]
+
+
+def _expr_from_json(obj):
+    if isinstance(obj, list):
+        return tuple(_expr_from_json(e) for e in obj)
+    return obj
+
+
+# -- plan nodes ------------------------------------------------------------
+
+class PlanNode:
+    """Base class: DAG traversal + serialization shared by all nodes."""
+
+    def children(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in fields(self)
+                     if isinstance(getattr(self, f.name), PlanNode))
+
+    # serialization -------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        """Topologically ordered node list with integer ids (stable form)."""
+        nodes: list = []
+        ids: dict = {}
+
+        def visit(n: "PlanNode") -> int:
+            if id(n) in ids:
+                return ids[id(n)]
+            child_ids = [visit(c) for c in n.children()]
+            d = n._node_dict(child_ids)
+            d["op"] = type(n).__name__
+            nid = len(nodes)
+            nodes.append(d)
+            ids[id(n)] = nid
+            return nid
+
+        return {"version": PLAN_VERSION, "root": visit(self), "nodes": nodes}
+
+    def serialize(self) -> bytes:
+        """Canonical JSON bytes — the PLAN_EXECUTE wire body."""
+        return json.dumps(self.to_dict(), sort_keys=True,
+                          separators=(",", ":")).encode("utf-8")
+
+    def fingerprint(self) -> str:
+        """sha256 of the canonical form; the plan-cache key."""
+        return hashlib.sha256(self.serialize()).hexdigest()
+
+    def __repr__(self):
+        args = ", ".join(
+            f"{f.name}={type(v).__name__ if isinstance(v, PlanNode) else v!r}"
+            for f in fields(self) for v in [getattr(self, f.name)])
+        return f"{type(self).__name__}({args})"
+
+
+def _tup(v):
+    return None if v is None else tuple(v)
+
+
+@dataclass(frozen=True, eq=False)
+class Scan(PlanNode):
+    """Leaf: read a columnar file.
+
+    ``predicate`` is the row-group pruning hint ``(column, lo, hi)`` consumed
+    by ``ParquetChunkedReader`` — normally installed by the optimizer, not by
+    hand.  ``chunk_bytes`` bounds decode passes (``pass_read_limit``) and
+    marks the scan as streamable for partial aggregation.  ``partitioned_by``
+    declares that the file's rows are already hash-placed on those columns
+    (the engine's murmur3/pmod placement) — the distributed planner trusts it
+    for shuffle elimination.
+    """
+    path: str
+    format: str = "parquet"
+    columns: Optional[Tuple[str, ...]] = None
+    predicate: Optional[tuple] = None
+    chunk_bytes: Optional[int] = None
+    partitioned_by: Optional[Tuple[str, ...]] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "path", str(self.path))
+        object.__setattr__(self, "columns", _tup(self.columns))
+        object.__setattr__(self, "predicate", _tup(self.predicate))
+        object.__setattr__(self, "partitioned_by", _tup(self.partitioned_by))
+        if self.format not in ("parquet", "orc"):
+            raise ValueError(f"unknown scan format {self.format!r}")
+        if self.predicate is not None and len(self.predicate) != 3:
+            raise ValueError("scan predicate must be (column, lo, hi)")
+
+    def _node_dict(self, child_ids):
+        d = {"path": self.path, "format": self.format,
+             "columns": None if self.columns is None else list(self.columns),
+             "predicate": None if self.predicate is None
+             else list(self.predicate),
+             "chunk_bytes": self.chunk_bytes}
+        # emitted only when declared so pre-existing plan fingerprints are
+        # byte-identical to the previous serialization
+        if self.partitioned_by is not None:
+            d["partitioned_by"] = list(self.partitioned_by)
+        return d
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(path=d["path"], format=d.get("format", "parquet"),
+                   columns=_tup(d.get("columns")),
+                   predicate=_tup(d.get("predicate")),
+                   chunk_bytes=d.get("chunk_bytes"),
+                   partitioned_by=_tup(d.get("partitioned_by")))
+
+
+@dataclass(frozen=True, eq=False)
+class Filter(PlanNode):
+    """Keep rows where ``predicate`` evaluates true (nulls drop, SQL-style)."""
+    child: PlanNode
+    predicate: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "predicate",
+                           _expr_from_json(list(self.predicate)))
+        _validate_expr(self.predicate)
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0],
+                "predicate": _expr_to_json(self.predicate)}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]],
+                   predicate=_expr_from_json(d["predicate"]))
+
+
+@dataclass(frozen=True, eq=False)
+class Project(PlanNode):
+    """Restrict (and reorder) output columns."""
+    child: PlanNode
+    columns: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "columns", tuple(self.columns))
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0], "columns": list(self.columns)}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]], columns=tuple(d["columns"]))
+
+
+@dataclass(frozen=True, eq=False)
+class Join(PlanNode):
+    """Equi-join.  Output = left columns then right non-key columns, with a
+    ``_r`` suffix on right names colliding with left names (ops.join rule).
+    ``semi``/``anti`` output only left columns."""
+    left: PlanNode
+    right: PlanNode
+    left_keys: Tuple[str, ...]
+    right_keys: Tuple[str, ...]
+    how: str = "inner"
+
+    def __post_init__(self):
+        object.__setattr__(self, "left_keys", tuple(self.left_keys))
+        object.__setattr__(self, "right_keys", tuple(self.right_keys))
+        if self.how not in JOIN_HOWS:
+            raise ValueError(f"unknown join how {self.how!r}")
+        if self.how != "cross" and len(self.left_keys) != len(self.right_keys):
+            raise ValueError("left/right key count mismatch")
+
+    def children(self):
+        return (self.left, self.right)
+
+    def _node_dict(self, child_ids):
+        return {"left": child_ids[0], "right": child_ids[1],
+                "left_keys": list(self.left_keys),
+                "right_keys": list(self.right_keys), "how": self.how}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(left=built[d["left"]], right=built[d["right"]],
+                   left_keys=tuple(d["left_keys"]),
+                   right_keys=tuple(d["right_keys"]),
+                   how=d.get("how", "inner"))
+
+
+@dataclass(frozen=True, eq=False)
+class Aggregate(PlanNode):
+    """Group by ``keys`` and compute ``aggs`` = ((column|None, op), ...);
+    ``names`` are the output aggregate column names (defaulted to
+    ``op_column`` / ``count`` when omitted)."""
+    child: PlanNode
+    keys: Tuple[str, ...]
+    aggs: Tuple[tuple, ...]
+    names: Optional[Tuple[str, ...]] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "keys", tuple(self.keys))
+        object.__setattr__(self, "aggs",
+                           tuple(tuple(a) for a in self.aggs))
+        for colname, op in self.aggs:
+            if op not in AGG_OPS:
+                raise ValueError(f"unknown aggregate op {op!r}")
+            if colname is None and op != "count_all":
+                raise ValueError(f"agg {op!r} requires a column")
+        if self.names is None:
+            object.__setattr__(self, "names", tuple(
+                "count" if c is None else f"{op}_{c}"
+                for c, op in self.aggs))
+        else:
+            object.__setattr__(self, "names", tuple(self.names))
+        if len(self.names) != len(self.aggs):
+            raise ValueError("names/aggs length mismatch")
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0], "keys": list(self.keys),
+                "aggs": [list(a) for a in self.aggs],
+                "names": list(self.names)}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]], keys=tuple(d["keys"]),
+                   aggs=tuple(tuple(a) for a in d["aggs"]),
+                   names=_tup(d.get("names")))
+
+
+@dataclass(frozen=True, eq=False)
+class Sort(PlanNode):
+    """Order by ``keys`` = ((column, ascending), ...)."""
+    child: PlanNode
+    keys: Tuple[tuple, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "keys",
+                           tuple((str(c), bool(a)) for c, a in self.keys))
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0], "keys": [list(k) for k in self.keys]}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]],
+                   keys=tuple(tuple(k) for k in d["keys"]))
+
+
+@dataclass(frozen=True, eq=False)
+class Limit(PlanNode):
+    """First ``n`` rows of the child."""
+    child: PlanNode
+    n: int
+
+    def __post_init__(self):
+        if int(self.n) < 0:
+            raise ValueError("limit must be >= 0")
+        object.__setattr__(self, "n", int(self.n))
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0], "n": self.n}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]], n=d["n"])
+
+
+@dataclass(frozen=True, eq=False)
+class TopK(PlanNode):
+    """First ``n`` rows of the child under ``keys`` ordering — the fused
+    ORDER BY ... LIMIT form the optimizer rewrites ``Limit(Sort(x), n)``
+    into.  Semantically identical to sort-then-slice; the executor may run
+    it as a streaming per-chunk partial top-k (a capacity-``n`` device
+    buffer instead of a full materialized sort) when ``SRJT_TOPK`` is on.
+    ``keys`` = ((column, ascending), ...), like ``Sort``."""
+    child: PlanNode
+    keys: Tuple[tuple, ...]
+    n: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "keys",
+                           tuple((str(c), bool(a)) for c, a in self.keys))
+        if int(self.n) < 0:
+            raise ValueError("topk n must be >= 0")
+        object.__setattr__(self, "n", int(self.n))
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0],
+                "keys": [list(k) for k in self.keys], "n": self.n}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]],
+                   keys=tuple(tuple(k) for k in d["keys"]), n=d["n"])
+
+
+@dataclass(frozen=True, eq=False)
+class Exchange(PlanNode):
+    """Data-movement boundary: re-place the child's rows across the device
+    mesh.  ``kind="hash"`` shuffles rows by the engine's murmur3/pmod
+    placement of ``keys`` (Spark-exact for fixed-width keys); ``kind=
+    "broadcast"`` replicates the whole child to every device (the build side
+    of a broadcast-hash join).  Schema-transparent: output columns and dtypes
+    equal the child's.  Inserted by the optimizer's distributed-planning
+    rules, never required by hand-built single-device plans."""
+    child: PlanNode
+    keys: Tuple[str, ...] = ()
+    kind: str = "hash"
+
+    def __post_init__(self):
+        object.__setattr__(self, "keys", tuple(self.keys))
+        if self.kind not in EXCHANGE_KINDS:
+            raise ValueError(f"unknown exchange kind {self.kind!r}")
+        if self.kind == "hash" and not self.keys:
+            raise ValueError("hash exchange requires keys")
+        if self.kind == "broadcast" and self.keys:
+            raise ValueError("broadcast exchange takes no keys")
+
+    def _node_dict(self, child_ids):
+        return {"child": child_ids[0], "keys": list(self.keys),
+                "kind": self.kind}
+
+    @classmethod
+    def _from_dict(cls, d, built):
+        return cls(child=built[d["child"]], keys=tuple(d.get("keys", ())),
+                   kind=d.get("kind", "hash"))
+
+
+_NODE_TYPES = {c.__name__: c for c in
+               (Scan, Filter, Project, Join, Aggregate, Sort, Limit, TopK,
+                Exchange)}
+
+
+def from_dict(obj: dict) -> PlanNode:
+    if obj.get("version") != PLAN_VERSION:
+        raise ValueError(f"unsupported plan version {obj.get('version')!r}")
+    built: list = []
+    for d in obj["nodes"]:
+        cls = _NODE_TYPES.get(d.get("op"))
+        if cls is None:
+            raise ValueError(f"unknown plan node op {d.get('op')!r}")
+        built.append(cls._from_dict(d, built))
+    return built[obj["root"]]
+
+
+def deserialize(blob: bytes) -> PlanNode:
+    """Inverse of ``PlanNode.serialize``."""
+    return from_dict(json.loads(bytes(blob).decode("utf-8")))
+
+
+# -- traversal helpers shared by optimizer/executor ------------------------
+
+def node_label(node: PlanNode) -> str:
+    """Canonical lowercase label for a plan node (``"scan"``, ``"join"``,
+    ...) — the one spelling shared by metrics spans (executor), explain
+    renders, and verifier error paths, so the three always agree."""
+    return type(node).__name__.lower()
+
+
+def topo_nodes(root: PlanNode) -> list:
+    """Postorder (children before parents), each shared node once."""
+    out: list = []
+    seen: set = set()
+
+    def visit(n):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        for c in n.children():
+            visit(c)
+        out.append(n)
+
+    visit(root)
+    return out
+
+
+def rebuild(node: PlanNode, **changes) -> PlanNode:
+    """dataclasses.replace that tolerates no-op calls on frozen nodes."""
+    return replace(node, **changes) if changes else node
+
+
+# -- partitioning property -------------------------------------------------
+
+@dataclass(frozen=True)
+class Partitioning:
+    """How a node's output rows are placed across the mesh.
+
+    ``kind`` is ``"none"`` (unknown / single stream), ``"hash"`` (rows placed
+    by murmur3/pmod of ``keys``), ``"broadcast"`` (every device holds a
+    full replica), or ``"pages"`` (a device-decoded scan: rows land where
+    their compressed pages were shipped, page/row-group granular — a real
+    placement, but never co-partitioned with anything, so it degrades like
+    ``"none"`` at any key-sensitive boundary).  Compared structurally —
+    ``keys`` order is significant because placement hashes the key *tuple*
+    positionally.
+    """
+    kind: str = "none"
+    keys: Tuple[str, ...] = ()
+
+
+NO_PARTITIONING = Partitioning("none", ())
+BROADCAST_PARTITIONING = Partitioning("broadcast", ())
+
+
+def partitioning(node: PlanNode, _memo: Optional[dict] = None) -> Partitioning:
+    """Bottom-up placement property of ``node``'s output.
+
+    Conservative: anything that might scramble row placement degrades to
+    ``"none"``.  A hash partitioning survives operators that neither move
+    rows between devices nor drop the key columns; broadcast survives any
+    per-row operator (every device still holds every row).
+    """
+    memo = {} if _memo is None else _memo
+    if id(node) in memo:
+        return memo[id(node)]
+
+    if isinstance(node, Exchange):
+        p = (BROADCAST_PARTITIONING if node.kind == "broadcast"
+             else Partitioning("hash", node.keys))
+    elif isinstance(node, Scan):
+        if node.partitioned_by:
+            p = Partitioning("hash", node.partitioned_by)
+        elif getattr(node, "_decode_pages", False):
+            # device-decoded scan: rows sit wherever their compressed
+            # pages were shipped — page-granular placement, no key claim
+            p = Partitioning("pages", ())
+        else:
+            p = NO_PARTITIONING
+    elif isinstance(node, (Filter, Sort, Limit, TopK)):
+        # row-local / row-dropping operators never move surviving rows
+        p = partitioning(node.child, memo)
+    elif isinstance(node, Project):
+        p = partitioning(node.child, memo)
+        if p.kind == "hash" and not set(p.keys) <= set(node.columns):
+            p = NO_PARTITIONING
+    elif isinstance(node, Aggregate):
+        p = partitioning(node.child, memo)
+        if p.kind == "pages":
+            # page placement says nothing about group keys: a keyed
+            # aggregate over it is a single-stream combine, not aligned
+            p = NO_PARTITIONING
+        elif p.kind == "hash" and not set(p.keys) <= set(node.keys):
+            p = NO_PARTITIONING
+        elif p.kind == "broadcast" and node.keys:
+            # every device would compute identical full groups — replicated
+            p = BROADCAST_PARTITIONING
+    elif isinstance(node, Join):
+        lp = partitioning(node.left, memo)
+        rp = partitioning(node.right, memo)
+        if node.how != "cross" and (
+                rp.kind == "broadcast"
+                or co_partitioned(lp, rp, node.left_keys, node.right_keys)):
+            # probe rows never move: output inherits the left placement
+            p = lp
+        elif node.how == "cross" and rp.kind == "broadcast":
+            p = lp
+        else:
+            p = NO_PARTITIONING
+    else:
+        raise TypeError(f"partitioning: unknown node {type(node).__name__}")
+
+    memo[id(node)] = p
+    return p
+
+
+def co_partitioned(lp: Partitioning, rp: Partitioning,
+                   left_keys: Tuple[str, ...],
+                   right_keys: Tuple[str, ...]) -> bool:
+    """True when both sides are hash-placed on exactly the join keys (in
+    join-key order), so matching rows are already device-local."""
+    return (lp.kind == "hash" and rp.kind == "hash"
+            and tuple(lp.keys) == tuple(left_keys)
+            and tuple(rp.keys) == tuple(right_keys)
+            and len(left_keys) > 0)

@@ -18,9 +18,11 @@ is the candidate count), so it costs one host sync, where cudf returns its
 gather-map size; compacting the verified pairs costs the second.
 
 Null join keys never match (SQL equi-join semantics); ``null_equal=True``
-is null-safe equality (``<=>``).  Entry points take ``device=`` (default
-``"cuda"``) and move their inputs there.  ``left_join``, ``right_join``,
-``full_join``, ``cross_join`` and ``sort_merge_join`` are not ported yet.
+is null-safe equality (``<=>``).  The outer joins append the unmatched rows
+after the matched pairs, with the other side null, as the JAX package does;
+``cross_join`` pairs every left row with every right row, left-major.
+Entry points take ``device=`` (default ``"cuda"``) and move their inputs
+there.  ``sort_merge_join`` (the bridge's surface) is not ported yet.
 """
 
 from __future__ import annotations
@@ -152,6 +154,19 @@ def _compact_pairs(li, ri, eq):
     return li[sel], ri[sel]
 
 
+def _matched(idx, eq, n: int):
+    """bool[n]: which of ``n`` rows appear in a verified pair."""
+    hit = torch.zeros(n, dtype=_I64, device=eq.device)
+    if idx.shape[0]:
+        hit.scatter_reduce_(0, idx, eq.to(_I64), "amax")
+    return hit > 0
+
+
+def _unmatched(idx, eq, n: int):
+    """Indices of the rows of ``n`` that match nothing, ascending."""
+    return torch.nonzero(~_matched(idx, eq, n), as_tuple=True)[0]
+
+
 def _on_device(table: Table, dev: torch.device) -> Table:
     return table if not table.columns else table.to(dev)
 
@@ -166,6 +181,76 @@ def inner_join(left: Table, right: Table, on_left, on_right=None,
     li, ri, eq = _candidates(left, right, on_left, on_right)
     li, ri = _compact_pairs(li, ri, eq)
     return _assemble(left, right, li, ri, on_right, suffixes)
+
+
+@traced("left_join")
+def left_join(left: Table, right: Table, on_left, on_right=None,
+              suffixes=("", "_r"), device=_device.DEFAULT) -> Table:
+    """Left outer equi-join: the matched pairs, then each unmatched left
+    row with its right columns null."""
+    dev = _device.resolve(device)
+    left, right = _on_device(left, dev), _on_device(right, dev)
+    on_right = on_right or on_left
+    li, ri, eq = _candidates(left, right, on_left, on_right)
+    un = _unmatched(li, eq, left.num_rows)
+    li_m, ri_m = _compact_pairs(li, ri, eq)
+    li_all = torch.cat([li_m, un])
+    ri_all = torch.cat([ri_m, torch.full_like(un, -1)])
+    return _assemble(left, right, li_all, ri_all, on_right, suffixes,
+                     right_valid=ri_all >= 0)
+
+
+@traced("right_join")
+def right_join(left: Table, right: Table, on_left, on_right=None,
+               suffixes=("", "_r"), device=_device.DEFAULT) -> Table:
+    """Right outer equi-join: the matched pairs, then each unmatched right
+    row with its left columns null.  Left columns then right non-key
+    columns, as every join here; the key columns take the right side's
+    values on the unmatched rows."""
+    dev = _device.resolve(device)
+    left, right = _on_device(left, dev), _on_device(right, dev)
+    on_right = on_right or on_left
+    li, ri, eq = _candidates(left, right, on_left, on_right)
+    un = _unmatched(ri, eq, right.num_rows)
+    li_m, ri_m = _compact_pairs(li, ri, eq)
+    li_all = torch.cat([li_m, torch.full_like(un, -1)])
+    ri_all = torch.cat([ri_m, un])
+    return _assemble_outer(left, right, li_all, ri_all, on_left, on_right,
+                           suffixes, left_valid=li_all >= 0,
+                           right_valid=None)
+
+
+@traced("full_join")
+def full_join(left: Table, right: Table, on_left, on_right=None,
+              suffixes=("", "_r"), device=_device.DEFAULT) -> Table:
+    """Full outer equi-join: the matched pairs, the unmatched left rows
+    (right side null), then the unmatched right rows (left side null, keys
+    from the right)."""
+    dev = _device.resolve(device)
+    left, right = _on_device(left, dev), _on_device(right, dev)
+    on_right = on_right or on_left
+    li, ri, eq = _candidates(left, right, on_left, on_right)
+    ul = _unmatched(li, eq, left.num_rows)
+    ur = _unmatched(ri, eq, right.num_rows)
+    li_m, ri_m = _compact_pairs(li, ri, eq)
+    li_all = torch.cat([li_m, ul, torch.full_like(ur, -1)])
+    ri_all = torch.cat([ri_m, torch.full_like(ul, -1), ur])
+    return _assemble_outer(left, right, li_all, ri_all, on_left, on_right,
+                           suffixes, left_valid=li_all >= 0,
+                           right_valid=ri_all >= 0)
+
+
+@traced("cross_join")
+def cross_join(left: Table, right: Table, suffixes=("", "_r"),
+               device=_device.DEFAULT) -> Table:
+    """Cartesian product: every left row paired with every right row,
+    left-major order; all columns of both sides kept."""
+    dev = _device.resolve(device)
+    left, right = _on_device(left, dev), _on_device(right, dev)
+    nl, nr = left.num_rows, right.num_rows
+    li = torch.arange(nl, device=dev).repeat_interleave(nr)
+    ri = torch.arange(nr, device=dev).repeat(nl)
+    return _assemble(left, right, li, ri, (), suffixes)
 
 
 def inner_join_padded(left: Table, right: Table, on_left, on_right,
@@ -335,10 +420,7 @@ def _matched_left_rows(left: Table, right: Table, on_left, on_right):
     rrep_t = gather_table(Table([right.column(k) for k in on_right], knames),
                           rreps)
     li, _, eq = _candidates(lrep_t, rrep_t, knames, knames)
-    matched = torch.zeros(lreps.shape[0], dtype=_I64, device=lreps.device)
-    if li.shape[0]:
-        matched.scatter_reduce_(0, li, eq.to(_I64), "amax")
-    return matched[lseg_of_row] > 0
+    return _matched(li, eq, lreps.shape[0])[lseg_of_row]
 
 
 def _semi_anti(left, right, on_left, on_right, device, anti: bool):
@@ -369,7 +451,7 @@ def left_anti_join(left: Table, right: Table, on_left, on_right=None,
     return _semi_anti(left, right, on_left, on_right, device, anti=True)
 
 
-def _assemble(left, right, li, ri, on_right, suffixes):
+def _assemble(left, right, li, ri, on_right, suffixes, right_valid=None):
     on_r = tuple(on_right) if isinstance(on_right, (list, tuple)) \
         else on_right
     lcols = gather_table(left, li)
@@ -378,8 +460,42 @@ def _assemble(left, right, li, ri, on_right, suffixes):
               if not (isinstance(on_r, tuple) and nm in on_r)]
     rsub = Table([right.columns[i] for i in keep_r],
                  [rnames[i] for i in keep_r])
-    rcols = gather_table(rsub, ri)
+    rcols = gather_table(rsub, ri, indices_valid=right_valid)
     lnames = lcols.names or [f"l{i}" for i in range(lcols.num_columns)]
     names = list(lnames) + [
         nm + (suffixes[1] if nm in lnames else "") for nm in rsub.names]
     return Table(list(lcols.columns) + list(rcols.columns), names)
+
+
+def _assemble_outer(left, right, li, ri, on_left, on_right, suffixes,
+                    left_valid, right_valid):
+    """Assemble an outer join where either side's row index may be -1.
+
+    Key columns are coalesced: a row missing on the left takes the right
+    side's key value (one gather over the two sides concatenated, so STRING
+    keys work the same as fixed-width)."""
+    from .selection import _concat_columns, gather_column
+    on_left = list(on_left)
+    on_right = list(on_right if on_right is not None else on_left)
+    lnames = list(left.names or [f"l{i}" for i in range(left.num_columns)])
+    rnames = list(right.names or [f"c{i}" for i in range(right.num_columns)])
+    nl, nr = left.num_rows, right.num_rows
+    lsafe = li.clamp(0, max(nl - 1, 0))
+    rsafe = ri.clamp(0, max(nr - 1, 0))
+    out_cols, out_names = [], []
+    for nm, col in zip(lnames, left.columns):
+        if nm in on_left and left_valid is not None:
+            rk = right.column(on_right[on_left.index(nm)])
+            both = _concat_columns([col, rk])
+            out_cols.append(gather_column(
+                both, torch.where(left_valid, lsafe, nl + rsafe)))
+        else:
+            out_cols.append(gather_column(col, lsafe,
+                                          indices_valid=left_valid))
+        out_names.append(nm)
+    for nm, col in zip(rnames, right.columns):
+        if nm in on_right:
+            continue
+        out_cols.append(gather_column(col, rsafe, indices_valid=right_valid))
+        out_names.append(nm + (suffixes[1] if nm in lnames else ""))
+    return Table(out_cols, out_names)

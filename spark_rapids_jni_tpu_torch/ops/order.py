@@ -138,11 +138,9 @@ def rows_differ_from_prev(words: list[torch.Tensor],
                           order: torch.Tensor) -> torch.Tensor:
     """bool[n]: sorted row i differs from row i-1 on any key word (row 0
     True).  Nulls compare equal to nulls (the flag word is in ``words``)."""
-    n = order.shape[0]
-    diff = torch.zeros(n, dtype=torch.bool, device=order.device)
-    if n == 0:
-        return diff
-    diff[0] = True
+    # row 0 set by a comparison, not ``diff[0] = True``: storing a Python
+    # scalar into a CUDA tensor is a synchronous host-to-device copy
+    diff = torch.arange(order.shape[0], device=order.device) == 0
     for wd in words:
         s = wd[order]
         diff[1:] |= s[1:] != s[:-1]

@@ -1,0 +1,52 @@
+"""Engine settings: the fields of the JAX package's ``Config`` that the
+engine reads, with the same defaults but one: ``device_decode`` follows the
+target (the device route on a card, the host route on the CPU) unless a
+caller pins it, where the JAX package's defaults to the host route.
+
+The JAX package reads each field from an ``SRJT_*`` environment variable at
+import; the port reads no environment.  Callers set fields on the
+module-level ``config`` (tests and tools wrap that in a context manager, as
+the fuzzer's ``_flags`` does), and every reader looks the value up at the
+time of use.
+
+| field | default | what it selects |
+|---|---|---|
+| ``fuse``            | ``True``  | Filter/Project/Aggregate chains run as compiled segments |
+| ``prefetch``        | ``1``     | chunked-scan pipeline depth (0 = serial) |
+| ``fuse_join``       | ``True``  | scan-independent-build joins join the streamed chunk segment |
+| ``topk``            | ``True``  | streaming top-k for ``TopK`` plans |
+| ``plan_cache``      | ``128``   | ``PlanCache`` capacity (entries) |
+| ``segment_cache``   | ``256``   | compiled-segment cache capacity (entries) |
+| ``build_cache``     | ``32``    | prepared-join-build cache capacity (entries) |
+| ``result_cache``    | ``0``     | result-set cache capacity (0 = off) |
+| ``metrics``         | ``True``  | query-scoped metrics (``utils/metrics.py``) |
+| ``verify``          | ``True``  | static plan verification in ``optimize`` |
+| ``device_decode``   | ``None``  | streamed scans decode pages on the device: ``None`` on a card target, ``True``/``False`` pin a route |
+| ``query_timeout_s`` | ``0.0``   | cooperative per-query deadline (0 = none) |
+| ``roofline_gbps``   | ``0.0``   | device bandwidth ceiling for explain's ``roofline_frac`` (0 = none) |
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass
+class Config:
+    fuse: bool = True
+    prefetch: int = 1
+    fuse_join: bool = True
+    topk: bool = True
+    plan_cache: int = 128
+    segment_cache: int = 256
+    build_cache: int = 32
+    result_cache: int = 0
+    metrics: bool = True
+    verify: bool = True
+    device_decode: Optional[bool] = None
+    query_timeout_s: float = 0.0
+    roofline_gbps: float = 0.0
+
+
+config = Config()

@@ -5,7 +5,9 @@
   (the analog of the reference's NVTX ranges).
 - ``count(name)`` / ``counter_value(name)``: process-wide monotonic counters
   keyed by dotted name.  The kernel wrappers count their launches here as
-  ``kernel.<wrapper>``.  Thread-safe.
+  ``kernel.<wrapper>``; the engine its cache hits and misses as
+  ``engine.<cache>.<event>``.  ``counters_snapshot`` / ``reset_counters``
+  isolate a prefix.  Thread-safe.
 """
 
 from __future__ import annotations
@@ -42,6 +44,12 @@ def count(name: str, n: int = 1) -> int:
 def counter_value(name: str) -> int:
     with _counters_lock:
         return _counters.get(name, 0)
+
+
+def counters_snapshot(prefix: str = "") -> dict:
+    """Copy of all counters whose name starts with ``prefix``."""
+    with _counters_lock:
+        return {k: v for k, v in _counters.items() if k.startswith(prefix)}
 
 
 def reset_counters(prefix: str = "") -> None:
