@@ -74,6 +74,34 @@ Phases (any failed check raises, and the script exits non-zero):
             row groups read, which must not grow with the chunks; a profile
             per route; and the explain_analyze text, its ceiling this card's
             copy rate (the kernels phase's library time).
+10. ops     every op of the spark-rapids-jni surface at full width:
+            numeric and temporal columns of 2^24 rows, NDS-shaped strings
+            of 2^22 rows (numeric_strings, text_strings).  CastStrings in
+            every direction, cast across int/float/decimal64/decimal128,
+            the string functions, regex_matches (a rewritable pattern and
+            the host escape), utc_to_local/local_to_utc (Los Angeles,
+            Kolkata; 1900-2100), interleave_bits (2 and 3 columns), bloom
+            build/merge/probe at Spark's sizing for 2^24 items (fpp 0.03),
+            window (row_number, running sum/min/max, 1,000 partitions),
+            dictionary, distinct, nunique, collect_list.  Each result is
+            held bit-exact against the port on the CPU (row-wise ops on
+            the first 2^20 rows of the output; the others run on a
+            2^20-row input on both), and independent oracles run on a
+            65,536-row sample (Python int()/float()/decimal.Decimal/str,
+            datetime, zoneinfo, Spark's murmur3 bloom positions, a Python
+            bit interleaver, numpy window).  Per op: warm wall time, rows/s,
+            launches and busy share (one profiled call), synchronising calls
+            (set_sync_debug_mode("warn")).
+11. nds     q64, q67, q97 and predicate-cast lites (tests/test_query_nds.py
+            wiring) at one SF100 task's split: 2^24-row q64 store_sales
+            and q67 fact, 2^23-row catalog_sales, store_returns a tenth of
+            the split's (item, ticket) pairs, customer (2,000,000 rows,
+            STRING country), item (204,000, STRING colour), date_dim,
+            store; predicate-cast over a 2^22-row table built on the card.
+            The facts are read by the device route (K3/W1/W2 counted on
+            each warm run); every query runs cold and warm against a numpy
+            oracle (counts exact, sums within rel 1e-9), with a profile
+            and a sync count.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -152,6 +180,94 @@ def wall(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def _segments_to_strings(rng, segments, n: int, null_rate: float):
+    """(chars, int32 offsets, validity) of rows made by concatenating
+    ``segments``: [(lengths[n], chars[n, max_len] uint8)], per row."""
+    width = sum(c.shape[1] for _, c in segments)
+    mat = np.zeros((n, width), np.uint8)
+    pos = np.zeros(n, np.int64)
+    rows = np.arange(n)
+    for lens, chars in segments:
+        for j in range(chars.shape[1]):
+            m = j < lens
+            mat[rows[m], pos[m] + j] = chars[m, j]
+        pos += lens
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(pos, out=offsets[1:])
+    chars = mat[np.arange(width)[None, :] < pos[:, None]]
+    return chars, offsets.astype(np.int32), rng.random(n) >= null_rate
+
+
+def _digit_chars(rng, n: int, width: int) -> np.ndarray:
+    return rng.integers(ord("0"), ord("9") + 1, (n, width)).astype(np.uint8)
+
+
+def numeric_strings(rng, n: int, null_rate: float = 0.02):
+    """Cast inputs, 4-20 characters: valid, invalid, signed, fractional,
+    exponent and whitespace-padded numbers.  Returns (chars, int32 offsets,
+    validity), numpy."""
+    def seg(lens, chars):
+        return (np.asarray(lens, np.int64), np.asarray(chars, np.uint8))
+
+    def fixed(ch, p):
+        return seg(rng.random(n) < p, np.full((n, 1), ord(ch)))
+    lead = seg(rng.random(n) < 0.1, np.full((n, 1), ord(" ")))
+    sign = seg(rng.random(n) < 0.3, np.where(
+        rng.random((n, 1)) < 0.7, ord("-"), ord("+")))
+    has_frac = rng.random(n) < 0.4
+    frac_len = np.where(has_frac, rng.integers(2, 7, n), 0)  # "." + digits
+    frac_chars = _digit_chars(rng, n, 6)
+    frac_chars[:, 0] = ord(".")
+    has_exp = rng.random(n) < 0.15
+    exp_chars = np.stack([np.full(n, ord("e")), np.where(
+        rng.random(n) < 0.5, ord("-"), ord("+")),
+        *_digit_chars(rng, n, 2).T], axis=1)
+    exp_len = np.where(has_exp, rng.integers(2, 5, n), 0)
+    trail = seg(rng.random(n) < 0.1, np.full((n, 1), ord(" ")))
+    rest = lead[0] + sign[0] + frac_len + exp_len + trail[0]
+    int_len = np.clip(rng.integers(1, 12, n), 4 - rest, 20 - rest)
+    ints = _digit_chars(rng, n, 11)
+    segs = [lead, sign, seg(int_len, ints), seg(frac_len, frac_chars),
+            seg(exp_len, exp_chars), trail]
+    chars, offsets, valid = _segments_to_strings(rng, segs, n, null_rate)
+    # 8% invalid: one character becomes a letter
+    bad = np.flatnonzero(rng.random(n) < 0.08)
+    at = offsets[bad] + rng.integers(0, 1 << 30, len(bad)) % (
+        offsets[bad + 1] - offsets[bad])
+    chars[at] = rng.integers(ord("a"), ord("z") + 1, len(bad))
+    return chars, offsets, valid
+
+
+WORDS = np.array([b"able", b"anti", b"bar", b"cally", b"ese", b"eing",
+                  b"ought", b"pri", b"ation", b"n st", b"misty", b"plum",
+                  b"red", b"blue", b"cat-1A", b"cat-22B", b"dog-3C"], object)
+
+
+def text_strings(rng, n: int, null_rate: float = 0.02):
+    """NDS-shaped text, 4-20 characters: one to three words joined by '-'
+    or ' ', some with leading or trailing spaces.  (chars, int32 offsets,
+    validity), numpy."""
+    wl = np.array([len(w) for w in WORDS])
+    wm = np.zeros((len(WORDS), 7), np.uint8)
+    for i, w in enumerate(WORDS):
+        wm[i, :len(w)] = np.frombuffer(w, np.uint8)
+    segs = []
+    total = np.zeros(n, np.int64)
+    for k in range(3):
+        pick = rng.integers(0, len(WORDS), n)
+        use = np.ones(n, bool) if k == 0 else \
+            (rng.random(n) < 0.6) & (total + 1 + wl[pick] <= 19)
+        if k:
+            sep = np.where(rng.random((n, 1)) < 0.5, ord("-"), ord(" "))
+            segs.append((use.astype(np.int64), sep.astype(np.uint8)))
+            total += use
+        segs.append((np.where(use, wl[pick], 0), wm[pick]))
+        total += np.where(use, wl[pick], 0)
+    pad = ((total < 4) | (rng.random(n) < 0.1)) & (total < 20)
+    segs.append((pad.astype(np.int64), np.full((n, 1), ord(" "), np.uint8)))
+    return _segments_to_strings(rng, segs, n, null_rate)
 
 
 # the port's record_function ranges on q5's paths, hand-wired and engine
@@ -789,7 +905,8 @@ def write_parquet(path, columns, group_rows: int, codec: str = "snappy",
             else:
                 idx = None
                 per_value = 1 if kind == "bool" else (
-                    64 if kind == "string" else 8 * np.dtype(kind).itemsize)
+                    8 * (4 + max(map(len, nn), default=0))
+                    if kind == "string" else 8 * np.dtype(kind).itemsize)
             per_row = per_value + (2 if ok is not None else 0)
             rows_pp = max(8, (page_bytes - min(4096, page_bytes // 8)) * 8
                           // per_row)
@@ -1061,6 +1178,163 @@ def q5_matches(got: dict, want: dict, rel: float = 1e-9) -> bool:
                 abs(gp - wp) > rel * abs(wp):
             return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# NDS-lite queries (the nds phase; tests/test_torch_nds.py runs the same
+# functions on the CPU): q64, q67, q97 and predicate-cast, wired as
+# tests/test_query_nds.py wires them through the JAX package's ops
+# ---------------------------------------------------------------------------
+
+Q64_COLORS = ("plum", "misty")
+Q64_COLUMNS = ["ss_sold_date_sk", "ss_store_sk", "ss_customer_sk",
+               "ss_item_sk", "ss_ticket_number", "ss_sales_price"]
+PREDICATE = r"^cat-\d+[A-Z]$"      # outside the rewrite set: host escape
+
+
+def _dim(root, name, route, device, info):
+    """A whole (small) table: the host reader, or the device route's
+    decode of every group (STRING groups take the host decoder)."""
+    from spark_rapids_jni_tpu_torch.io import read_parquet
+    from spark_rapids_jni_tpu_torch.ops.selection import concat_tables
+    if route == "host":
+        return read_parquet(Path(root) / name, device=device)
+    return concat_tables(list(scan(Path(root) / name, "device", device,
+                                   info)))
+
+
+def q64_lite(root, route: str, device):
+    """q64-lite: store_sales joined with date_dim, store, customer and the
+    items whose colour is plum or misty (``ops.strings.equal`` on the
+    card), left-joined with store_returns on (item, ticket); net = price -
+    returned amount; sum and count of net by (store name, year).  Each fact
+    chunk aggregates partially, then the partials combine.  Returns
+    ({(name, year): (net, n)}, scan info)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.dtypes import BOOL8, FLOAT64
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join, left_join
+    from spark_rapids_jni_tpu_torch.ops.selection import (apply_boolean_mask,
+                                                          concat_tables)
+    from spark_rapids_jni_tpu_torch.ops.strings import equal
+    info: dict = {}
+    t0 = time.perf_counter()
+    dd = _dim(root, "date_dim.parquet", route, device, info)
+    stores = _dim(root, "store.parquet", route, device, info)
+    cust = _dim(root, "customer.parquet", route, device, info)
+    items = _dim(root, "item.parquet", route, device, info)
+    sr = _dim(root, "store_returns.parquet", route, device, info)
+    info["dims_s"] = time.perf_counter() - t0
+    color = items["i_color"]
+    hit = (equal(color, Q64_COLORS[0]).data != 0) | \
+        (equal(color, Q64_COLORS[1]).data != 0)
+    fitems = apply_boolean_mask(items, Column(BOOL8, data=hit.to(torch.uint8),
+                                              validity=color.validity))
+    partials = []
+    fact_info: dict = {}
+    for chunk in scan(Path(root) / "store_sales.parquet", route, device,
+                      fact_info, Q64_COLUMNS):
+        j = inner_join(chunk, dd, ["ss_sold_date_sk"], ["d_date_sk"],
+                       device=device)
+        j = inner_join(j, stores, ["ss_store_sk"], ["s_store_sk"],
+                       device=device)
+        j = inner_join(j, cust, ["ss_customer_sk"], ["c_customer_sk"],
+                       device=device)
+        j = inner_join(j, fitems, ["ss_item_sk"], ["i_item_sk"],
+                       device=device)
+        j = left_join(j, sr, ["ss_item_sk", "ss_ticket_number"],
+                      ["sr_item_sk", "sr_ticket_number"], device=device)
+        ret = j["sr_return_amt"]
+        net = j["ss_sales_price"].data - torch.where(
+            ret.valid_mask(), ret.data, torch.zeros_like(ret.data))
+        jt = Table(list(j.columns) + [Column(FLOAT64, data=net)],
+                   list(j.names) + ["net"])
+        partials.append(groupby(jt, ["s_store_name", "d_year"],
+                                [("net", "sum"), ("net", "count")],
+                                names=["net", "n"], device=device))
+    g = groupby(concat_tables(partials), ["s_store_name", "d_year"],
+                [("net", "sum"), ("n", "sum")], names=["net", "n"],
+                device=device)
+    info.update(fact_info)
+    return {(nm, int(y)): (s, int(n)) for nm, y, s, n in zip(
+        g["s_store_name"].to_pylist(), g["d_year"].to_pylist(),
+        g["net"].to_pylist(), g["n"].to_pylist())}, info
+
+
+def q67_lite(root, route: str, device, top: int = 3):
+    """q67-lite: sales by (store, category, item), ranked within (store,
+    category) by ``window`` row_number on descending sales, top 3 kept.
+    Returns (sorted [(store, cat, round(sales, 6))], scan info)."""
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.order import SortKey
+    from spark_rapids_jni_tpu_torch.ops.selection import (apply_boolean_mask,
+                                                          concat_tables)
+    from spark_rapids_jni_tpu_torch.ops.window import window
+    info: dict = {}
+    keys = ["store", "cat", "item"]
+    partials = [groupby(chunk, keys, [("price", "sum")], names=["sales"],
+                        device=device)
+                for chunk in scan(Path(root) / "q67_sales.parquet", route,
+                                  device, info)]
+    per_item = groupby(concat_tables(partials), keys, [("sales", "sum")],
+                       names=["sales"], device=device)
+    ranked = window(per_item, ["store", "cat"],
+                    [SortKey(per_item["sales"], ascending=False)],
+                    [(None, "row_number")], names=["rn"])
+    kept = apply_boolean_mask(ranked, ranked["rn"].data <= top)
+    return sorted(zip(kept["store"].to_pylist(), kept["cat"].to_pylist(),
+                      [round(s, 6) for s in kept["sales"].to_pylist()])), info
+
+
+def q97_lite(root, route: str, device, date_lo: int, date_hi: int):
+    """q97-lite: distinct (customer, item) pairs of store_sales and of
+    catalog_sales in a date range, full outer join; the channel-overlap
+    counts follow from the join's cardinality.  Returns ((store_only,
+    catalog_only, both), scan info)."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.ops.join import full_join
+    from spark_rapids_jni_tpu_torch.ops.selection import (apply_boolean_mask,
+                                                          concat_tables,
+                                                          distinct)
+    info: dict = {}
+
+    def keys_in_range(name, date_col, keys):
+        parts = []
+        for t in scan(Path(root) / name, route, device, info,
+                      [date_col] + keys, (date_col, date_lo, date_hi)):
+            d = t[date_col].data
+            t = apply_boolean_mask(t, (d >= date_lo) & (d <= date_hi))
+            parts.append(Table([t[k] for k in keys], keys))
+        return distinct(concat_tables(parts))
+
+    ssk = keys_in_range("store_sales.parquet", "ss_sold_date_sk",
+                        ["ss_customer_sk", "ss_item_sk"])
+    csk = keys_in_range("catalog_sales.parquet", "cs_sold_date_sk",
+                        ["cs_bill_customer_sk", "cs_item_sk"])
+    out = full_join(ssk, csk, ["ss_customer_sk", "ss_item_sk"],
+                    ["cs_bill_customer_sk", "cs_item_sk"], device=device)
+    both = ssk.num_rows + csk.num_rows - out.num_rows
+    return (ssk.num_rows - both, csk.num_rows - both, both), info
+
+
+def predicate_cast_lite(table):
+    """predicate-cast-lite over a port Table (cat STRING, amt DECIMAL64
+    scale -2, d DATE): RLIKE outside the rewrite set (the host escape),
+    the date cast to STRING, the decimal summed by that string.  Returns
+    {date string: unscaled sum}."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.dtypes import STRING
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.cast import cast
+    from spark_rapids_jni_tpu_torch.ops.regex_rewrite import regex_matches
+    from spark_rapids_jni_tpu_torch.ops.selection import apply_boolean_mask
+    dev = table.columns[0].device
+    kept = apply_boolean_mask(table, regex_matches(table["cat"], PREDICATE))
+    dstr = cast(kept["d"], STRING)
+    g = groupby(Table([dstr, kept["amt"]], ["ds", "amt"]), ["ds"],
+                [("amt", "sum")], device=dev)
+    return dict(zip(g["ds"].to_pylist(), g["sum_amt"].data.cpu().tolist()))
 
 
 # ---------------------------------------------------------------------------
@@ -1621,6 +1895,797 @@ def phase_engine(torch, root, fact, dates, stores, pqk, tracing, q5,
 
 
 # ---------------------------------------------------------------------------
+# 10. ops: every op of the spark-rapids-jni surface at full width
+# ---------------------------------------------------------------------------
+
+CPU_SLICE = 1 << 20      # rows of the CPU runs the card is held against
+ORACLE_ROWS = 1 << 16    # rows each independent oracle checks
+OPS_PARTITIONS = 1000
+TZ_ZONES = ("America/Los_Angeles", "Asia/Kolkata")
+BLOOM_FPP = 0.03
+
+
+def col_head(col, m: int):
+    """The first ``m`` rows of a column (STRING and LIST offsets rebased
+    from 0 already: every column here starts at offset 0)."""
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    m = min(m, col.size)
+    valid = None if col.validity is None else col.validity[:m]
+    if col.offsets is not None:
+        offs = col.offsets[:m + 1]
+        if col.children:
+            child = col_head(col.children[0], int(offs[-1]))
+            return Column(col.dtype, validity=valid, offsets=offs,
+                          children=(child,))
+        return Column(col.dtype, data=col.data[:int(offs[-1])],
+                      validity=valid, offsets=offs)
+    return Column(col.dtype, data=col.data[:m], validity=valid)
+
+
+def same_column(a, b) -> bool:
+    """Bit-exact equality of two port columns on any devices: type,
+    validity (None-ness too), data bits, offsets and children."""
+    import torch
+
+    def host(t):
+        return None if t is None else t.detach().cpu().contiguous()
+
+    def bits(t):
+        t = host(t)
+        return None if t is None else t.view(torch.uint8).reshape(-1) \
+            if t.dtype != torch.bool else t
+
+    if a.dtype != b.dtype or (a.validity is None) != (b.validity is None):
+        return False
+    for x, y in ((a.validity, b.validity), (a.offsets, b.offsets),
+                 (a.data, b.data)):
+        x, y = bits(x), bits(y)
+        if (x is None) != (y is None) or (x is not None and (
+                x.shape != y.shape or not torch.equal(x, y))):
+            return False
+    return len(a.children) == len(b.children) and all(
+        same_column(x, y) for x, y in zip(a.children, b.children))
+
+
+def column_bytes(col) -> int:
+    """Bytes of a column's buffers (data, validity, offsets, children)."""
+    return sum(t.numel() * t.element_size()
+               for t in (col.data, col.validity, col.offsets)
+               if t is not None) + sum(column_bytes(c) for c in col.children)
+
+
+def first_differences(torch, a, b, x, k: int = 6) -> dict:
+    """Where two fixed-width columns differ: up to ``k`` rows with both
+    values and validity, and the numeric-string input of those rows."""
+    if a.offsets is not None or b.offsets is not None:
+        return {"offsets_equal": bool(torch.equal(a.offsets.cpu(),
+                                                  b.offsets.cpu()))}
+    da = a.data.cpu().contiguous().view(torch.uint8).reshape(a.size, -1)
+    db = b.data.cpu().contiguous().view(torch.uint8).reshape(b.size, -1)
+    bad = (da != db).any(1) | (a.valid_mask().cpu() != b.valid_mask().cpu())
+    rows = torch.nonzero(bad)[:k, 0].tolist()
+    chars, offs, _ = x["num"]
+    return {"count": int(bad.sum()), "rows": [
+        {"row": r, "card": da[r].numpy().tobytes()[::-1].hex(),
+         "cpu": db[r].numpy().tobytes()[::-1].hex(), "card_valid": bool(a.valid_mask()[r]),
+         "cpu_valid": bool(b.valid_mask()[r]),
+         "num_input": bytes(chars[offs[r]:offs[r + 1]]).decode()}
+        for r in rows]}
+
+
+PROFILED_CALLS = 3
+
+
+def time_op(torch, fn) -> dict:
+    """Cold call, warm wall time, and ``PROFILED_CALLS`` calls under the
+    profiler and ``set_sync_debug_mode("warn")``: launches, device time and
+    sync count a call, busy share."""
+    out = fn()
+    torch.cuda.synchronize()
+    _, warm = wall(torch, fn)
+    prof = {"launches": 0}
+    for _ in range(3):  # a short session can come back with no device events
+        syncs, sites = count_syncs(torch, lambda: prof.update(profile_top(
+            torch, lambda: [fn() for _ in range(PROFILED_CALLS)], top=3)))
+        if prof["launches"]:
+            break
+    return out, {"warm_s": warm,
+                 "launches": prof["launches"] / PROFILED_CALLS,
+                 "device_ms": prof["device_ms"] / PROFILED_CALLS,
+                 "busy_share": prof["busy_share"],
+                 "syncs": syncs / PROFILED_CALLS,
+                 "sync_sites": dict(sorted(sites.items(),
+                                           key=lambda kv: -kv[1])[:4])}
+
+
+def _py_int(s: str):
+    """Spark CAST(string AS BIGINT), by Python int(): None when invalid."""
+    import re
+    t = s.strip("".join(chr(c) for c in range(33)))
+    m = re.fullmatch(r"([+-]?)(\d*)(?:\.(\d*))?", t)
+    if not m or not (m.group(2) or m.group(3)):
+        return None
+    v = int(m.group(2) or "0")
+    v = -v if m.group(1) == "-" else v
+    return v if -2**63 <= v < 2**63 else None
+
+
+def _py_float(s: str):
+    """Spark CAST(string AS DOUBLE) on Java parseDouble's syntax (trailing
+    d/D/f/F allowed), by Python float(): None when invalid."""
+    import re
+    t = s.strip("".join(chr(c) for c in range(33)))
+    if len(t) > 1 and t[-1] in "dDfF":
+        t = t[:-1]
+    m = re.fullmatch(r"[+-]?(\d*)\.?(\d*)(?:[eE]([+-]?\d+))?", t)
+    if not m or not (m.group(1) or m.group(2)):
+        return None
+    if not (m.group(1) + m.group(2)).strip("0") and \
+            int(m.group(3) or 0) - len(m.group(2)) >= 309:
+        # a zero mantissa times a power of ten past 1e308: NaN in both
+        # packages (0 x inf), a fault of the reference kept for parity
+        return float("nan")
+    return float(t)
+
+
+def _py_decimal(s: str, scale: int):
+    """Spark CAST(string AS DECIMAL) at ``scale`` (cudf convention), by
+    decimal.Decimal with HALF_UP: the unscaled value, None when invalid."""
+    import decimal
+    import re
+    t = s.strip("".join(chr(c) for c in range(33)))
+    if not re.fullmatch(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?", t):
+        return None
+    with decimal.localcontext() as ctx:
+        ctx.prec = 400
+        try:
+            q = decimal.Decimal(t).scaleb(-scale).quantize(
+                decimal.Decimal(1), rounding=decimal.ROUND_HALF_UP)
+        except decimal.DecimalException:  # past 400 digits or Emax: overflow
+            return None
+    return int(q) if -2**63 <= q < 2**63 else None
+
+
+def _murmur_long_py(v: int, seed: int) -> int:
+    """Spark Murmur3_x86_32.hashLong in Python (u32 result)."""
+    M = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & M
+
+    def mix(h, k):
+        k = rotl((k * 0xCC9E2D51) & M, 15) * 0x1B873593 & M
+        return (rotl(h ^ k, 13) * 5 + 0xE6546B64) & M
+    h = mix(mix(seed & M, v & M), (v >> 32) & M)
+    h ^= 8
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & M
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & M
+    return h ^ (h >> 16)
+
+
+def _bloom_positions_py(item: int, k: int, num_bits: int):
+    """Spark BloomFilterImpl's bit positions of one long item."""
+    def s32(u):
+        return u - (1 << 32) if u >= 1 << 31 else u
+    h1 = s32(_murmur_long_py(item & (2**64 - 1), 0))
+    h2 = s32(_murmur_long_py(item & (2**64 - 1), h1 & 0xFFFFFFFF))
+    out = []
+    for i in range(1, k + 1):
+        c = s32((h1 + i * h2) & 0xFFFFFFFF)
+        out.append((~c if c < 0 else c) % num_bits)
+    return out
+
+
+def _interleave_py(vals, w: int) -> bytes:
+    bits = [(vals[t % len(vals)] >> (w - 1 - t // len(vals))) & 1
+            for t in range(len(vals) * w)]
+    return bytes(int("".join(map(str, bits[i:i + 8])), 2)
+                 for i in range(0, len(bits), 8))
+
+
+def ops_inputs(n: int, n_str: int, seed: int) -> dict:
+    """numpy inputs of the ops phase."""
+    rng = np.random.default_rng(seed + 23)
+    lo = -2208988800            # 1900-01-01
+    hi = 4102444800             # 2100-01-01
+    return {
+        "i64": rng.integers(-2**62, 2**62, n) // 10 ** rng.integers(0, 18, n),
+        "i32": rng.integers(-2**31, 2**31, n).astype(np.int32),
+        "f64": rng.standard_normal(n) * 10.0 ** rng.integers(-8, 12, n),
+        "d64": rng.integers(-10**12, 10**12, n),
+        "d128_hi": rng.integers(-2**40, 2**40, n),
+        "ts_us": rng.integers(lo, hi, n) * 10**6 + rng.integers(0, 10**6, n),
+        "days": rng.integers(-25567, 47482, n).astype(np.int32),
+        "part": rng.integers(0, OPS_PARTITIONS, n),
+        "valid": rng.random(n) >= 0.02,
+        "num": numeric_strings(rng, n_str),
+        "text": text_strings(rng, n_str),
+    }
+
+
+def phase_ops(torch, tracing, n: int, n_str: int, seed: int) -> dict:
+    import datetime as _dt
+    import decimal
+    import math
+    from zoneinfo import ZoneInfo
+    from spark_rapids_jni_tpu_torch import dtypes as D
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import (binary, bloom_filter,
+                                                cast_strings, datetime,
+                                                dictionary, regex_rewrite,
+                                                strings, timezone, window,
+                                                zorder)
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.cast import cast
+    from spark_rapids_jni_tpu_torch.ops.order import SortKey
+    from spark_rapids_jni_tpu_torch.ops.selection import distinct
+    x = ops_inputs(n, n_str, seed)
+    valid = x["valid"]
+    ts_dtype = D.TIMESTAMP_MICROSECONDS
+    d128 = np.stack([x["d64"] * 7919, x["d128_hi"]], axis=1)
+
+    def columns(dev, rows, srows):
+        def fx(dtype, a, v=True):
+            return Column.fixed(dtype, a[:rows], valid[:rows] if v else None,
+                                device=dev)
+
+        def st(key):
+            chars, offs, ok = x[key]
+            return Column.string(chars[:offs[srows]], offs[:srows + 1],
+                                 ok[:srows], device=dev)
+        return {"i64": fx(D.INT64, x["i64"]), "i32": fx(D.INT32, x["i32"]),
+                "f64": fx(D.FLOAT64, x["f64"]),
+                "d64": fx(D.decimal64(-2), x["d64"]),
+                "d128": fx(D.decimal128(-4), d128),
+                "ts": fx(ts_dtype, x["ts_us"]),
+                "date": fx(D.TIMESTAMP_DAYS, x["days"]),
+                "part": fx(D.INT64, x["part"], False),
+                "o": fx(D.INT32, x["i32"] % 4096, False),
+                "num": st("num"), "text": st("text")}
+
+    dev = columns(DEV, n, n_str)
+    cpu = columns("cpu", CPU_SLICE, CPU_SLICE)
+    nb = bloom_filter.optimal_num_bits(n, BLOOM_FPP)
+    nh = bloom_filter.optimal_num_hashes(n, nb)
+    win_specs = [(None, "row_number"), ("i64", "sum"), ("f64", "min"),
+                 ("f64", "max")]
+
+    def win(c):
+        t = Table([c["part"], c["o"], c["i64"], c["f64"]],
+                  ["p", "o", "i64", "f64"])
+        return list(window.window(t, ["p"], ["o"], win_specs).columns[-4:])
+
+    # (name, rows, fn(columns) -> column or list of columns, row-wise)
+    cases = [
+        ("cast_to_integer", n_str,
+         lambda c: cast_strings.cast_to_integer(c["num"], D.INT64), True),
+        ("cast_to_float", n_str,
+         lambda c: cast_strings.cast_to_float(c["num"], D.FLOAT64), True),
+        ("cast_to_decimal", n_str, lambda c: cast_strings.cast_to_decimal(
+            c["num"], D.decimal64(-2)), True),
+        ("cast_to_bool", n_str,
+         lambda c: cast_strings.cast_to_bool(c["num"]), True),
+        ("cast_from_integer", n,
+         lambda c: cast_strings.cast_from_integer(c["i64"]), True),
+        ("cast_from_decimal", n,
+         lambda c: cast_strings.cast_from_decimal(c["d64"]), True),
+        ("cast_from_decimal128", n,
+         lambda c: cast_strings.cast_from_decimal(c["d128"]), True),
+        ("cast_from_float", n,
+         lambda c: cast_strings.cast_from_float(c["f64"]), True),
+        ("cast_from_datetime", n,
+         lambda c: cast_strings.cast_from_datetime(c["ts"]), True),
+        ("cast_from_date", n,
+         lambda c: cast_strings.cast_from_datetime(c["date"]), True),
+        ("cast_i64_i32", n, lambda c: cast(c["i64"], D.INT32), True),
+        ("cast_f64_i64", n, lambda c: cast(c["f64"], D.INT64), True),
+        ("cast_i32_f64", n, lambda c: cast(c["i32"], D.FLOAT64), True),
+        ("cast_f64_decimal64", n,
+         lambda c: cast(c["f64"], D.decimal64(-2)), True),
+        ("cast_decimal64_decimal128", n,
+         lambda c: cast(c["d64"], D.decimal128(-6)), True),
+        ("cast_decimal128_decimal64", n,
+         lambda c: cast(c["d128"], D.decimal64(-2)), True),
+        ("cast_f64_decimal128", n,
+         lambda c: cast(c["f64"], D.decimal128(-2)), True),
+        ("year", n, lambda c: datetime.year(c["ts"]), True),
+        ("add_i64", n, lambda c: binary.add(c["i64"], c["i32"]), True),
+        ("divide_f64", n,
+         lambda c: binary.true_divide(c["f64"], c["i32"]), True),
+        ("lt_f64", n, lambda c: binary.lt(c["f64"], c["i64"]), True),
+        ("char_length", n_str, lambda c: strings.char_length(c["text"]),
+         True),
+        ("upper", n_str, lambda c: strings.upper(c["text"]), True),
+        ("substring", n_str, lambda c: strings.substring(c["text"], 2, 5),
+         True),
+        ("contains", n_str, lambda c: strings.contains(c["text"], "an"),
+         True),
+        ("find", n_str, lambda c: strings.find(c["text"], "-"), True),
+        ("replace", n_str,
+         lambda c: strings.replace(c["text"], "-", "__"), True),
+        ("split_part", n_str,
+         lambda c: strings.split_part(c["text"], "-", 2), True),
+        ("split", n_str, lambda c: strings.split(c["text"], "-"), True),
+        ("trim", n_str, lambda c: strings.trim(c["text"]), True),
+        ("lpad", n_str, lambda c: strings.lpad(c["text"], 16, "*"), True),
+        ("concat", n_str,
+         lambda c: strings.concat(c["text"], c["num"]), True),
+        ("like", n_str, lambda c: strings.like(c["text"], "%a_e%"), True),
+        ("regex_rewritable", n_str,
+         lambda c: regex_rewrite.regex_matches(c["text"], "^cat"), True),
+        ("regex_host_escape", n_str,
+         lambda c: regex_rewrite.regex_matches(c["text"], PREDICATE), True),
+        *[(f"utc_to_local:{z}", n,
+           lambda c, z=z: timezone.utc_to_local(c["ts"], z), True)
+          for z in TZ_ZONES],
+        *[(f"local_to_utc:{z}", n,
+           lambda c, z=z: timezone.local_to_utc(c["ts"], z), True)
+          for z in TZ_ZONES],
+        ("interleave_bits_2x64", n, lambda c: zorder.interleave_bits(
+            Table([c["i64"], c["d64"]])), True),
+        ("interleave_bits_3x32", n, lambda c: zorder.interleave_bits(
+            Table([c["i32"], c["date"], cast(c["i64"], D.INT32)])), True),
+        ("bloom_build", n, lambda c: Column(D.BOOL8, data=bloom_filter
+                                            .bloom_build(c["i64"], nb, nh)
+                                            .to(torch.uint8)), False),
+        ("bloom_probe", n, lambda c: bloom_filter.bloom_might_contain(
+            bloom_filter.bloom_build(c["i64"], nb, nh), c["d64"], nh), False),
+        ("window", n, win, False),
+        ("dictionary_encode", n_str,
+         lambda c: list(dictionary.dictionary_encode(c["text"])), False),
+        ("distinct", n, lambda c: list(distinct(Table(
+            [c["part"], cast(c["i32"], D.INT8)], ["p", "b"])).columns),
+         False),
+        ("nunique", n, lambda c: list(groupby(Table(
+            [c["part"], cast(c["i32"], D.INT8)], ["p", "b"]), ["p"],
+            [("b", "nunique")], device=c["part"].device).columns), False),
+        ("collect_list", n, lambda c: list(groupby(Table(
+            [c["part"], cast(c["i32"], D.INT8)], ["p", "b"]), ["p"],
+            [("b", "collect_list")], device=c["part"].device).columns), False),
+    ]
+    # the columns each op reads, for its memory-bound time
+    reads = {"add_i64": ("i64", "i32"), "divide_f64": ("f64", "i32"),
+             "lt_f64": ("f64", "i64"), "concat": ("text", "num"),
+             "interleave_bits_2x64": ("i64", "d64"),
+             "interleave_bits_3x32": ("i32", "date", "i64"),
+             "bloom_probe": ("i64", "d64"),
+             "window": ("part", "o", "i64", "f64"),
+             "distinct": ("part", "i32"), "nunique": ("part", "i32"),
+             "collect_list": ("part", "i32")}
+    for name, _, _, _ in cases:
+        if name not in reads:
+            key = {"cast_to": "num", "cast_from_integer": "i64",
+                   "cast_from_decimal128": "d128", "cast_from_decimal": "d64",
+                   "cast_from_float": "f64", "cast_from_datetime": "ts",
+                   "cast_from_date": "date", "cast_i64": "i64",
+                   "cast_f64": "f64", "cast_i32": "i32",
+                   "cast_decimal64": "d64", "cast_decimal128": "d128",
+                   "year": "ts", "utc_to": "ts", "local_to": "ts",
+                   "bloom_build": "i64"}
+            reads[name] = tuple(v for k, v in key.items()
+                                if name.startswith(k))[:1] or ("text",)
+    out = {"phase": "ops", "rows": n, "string_rows": n_str,
+           "cpu_slice": CPU_SLICE, "oracle_rows": ORACLE_ROWS,
+           "bloom": {"num_bits": nb, "num_hashes": nh}, "ops": {}}
+    results = {}
+    for name, rows, fn, rowwise in cases:
+        tracing.reset_counters("ops.regex.")
+        res, rec = time_op(torch, lambda: fn(dev))
+        rec["rows"] = rows
+        rec["rows_per_s"] = rows / rec["warm_s"]
+        if name == "regex_host_escape":
+            rec["host_fallbacks"] = tracing.counter_value(
+                "ops.regex.host_fallback")
+            check(rec["host_fallbacks"] > 0, "the host escape was taken")
+        got = res if isinstance(res, list) else [res]
+        # bound: each input read once, each output written once
+        rec["bytes"] = sum(column_bytes(dev[k]) for k in reads[name]) + \
+            sum(column_bytes(g) for g in got)
+        rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        rec["x_bound"] = rec["warm_s"] * 1e3 / rec["bound_ms"]
+        if rowwise:
+            want = fn(cpu)
+            want = want if isinstance(want, list) else [want]
+            got_cmp = [col_head(g, CPU_SLICE) for g in got]
+        else:  # the same op on the first 2^20 rows, card and CPU
+            small = columns(DEV, CPU_SLICE, CPU_SLICE)
+            got_cmp = fn(small)
+            got_cmp = got_cmp if isinstance(got_cmp, list) else [got_cmp]
+            want = fn(cpu)
+            want = want if isinstance(want, list) else [want]
+        same = len(got_cmp) == len(want) and all(
+            same_column(g, w) for g, w in zip(got_cmp, want))
+        if not same:
+            emit({"phase": "ops_mismatch", "op": name,
+                  **first_differences(torch, got_cmp[0], want[0], x)})
+        check(same, f"{name} on the card == the port on the CPU, bit for bit")
+        results[name] = got
+        out["ops"][name] = rec
+        emit({"phase": "ops_case", "op": name, **rec})
+
+    # independent oracles on a 65,536-row sample
+    m = ORACLE_ROWS
+    nchars, noffs, nok = x["num"]
+    strs = [bytes(nchars[noffs[i]:noffs[i + 1]]).decode() for i in range(m)]
+    ints = col_head(results["cast_to_integer"][0], m).to_pylist()
+    check(ints == [(_py_int(s) if ok else None) for s, ok in
+                   zip(strs, nok[:m])], "cast_to_integer == Python int()")
+    decs = col_head(results["cast_to_decimal"][0], m)
+    dv = decs.to_numpy()
+    dok = decs.validity_numpy()
+    want_d = [(_py_decimal(s, -2) if ok else None) for s, ok in
+              zip(strs, nok[:m])]
+    check(all((w is None and not k) or (k and int(v) == w)
+              for v, k, w in zip(dv.tolist(), dok.tolist(), want_d)),
+          "cast_to_decimal == decimal.Decimal HALF_UP")
+    fl = col_head(results["cast_to_float"][0], m)
+    fv, fok = fl.to_numpy(), fl.validity_numpy()
+    want_f = [(_py_float(s) if ok else None) for s, ok in zip(strs, nok[:m])]
+    check(fok.tolist() == [w is not None for w in want_f],
+          "cast_to_float validity == Python float() on Java's syntax")
+    # the port parses with two roundings (the digits, then the power of
+    # ten): within 2 ulp of Python's correctly rounded float()
+    check(all(w is None or v == w or abs(v - w) <= 4.5e-16 * abs(w)
+              or (math.isnan(v) and math.isnan(w))
+              for v, w in zip(fv.tolist(), want_f)),
+          "cast_to_float values within 2 ulp of Python float()")
+    out["cast_to_float_zero_mantissa_nan"] = sum(
+        w is not None and math.isnan(w) for w in want_f)
+    i64 = x["i64"][:m]
+    check(col_head(results["cast_from_integer"][0], m).to_pylist() ==
+          [str(int(v)) if ok else None for v, ok in zip(i64, valid[:m])],
+          "cast_from_integer == str(int)")
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        check(col_head(results["cast_from_decimal"][0], m).to_pylist() ==
+              [f"{decimal.Decimal(int(v)).scaleb(-2):.2f}" if ok else None
+               for v, ok in zip(x["d64"][:m], valid[:m])],
+              "cast_from_decimal == decimal.Decimal")
+        want128 = [f"{decimal.Decimal((int(h) << 64) + (int(lo) & (2**64 - 1))).scaleb(-4):.4f}"  # noqa: E501
+                   if ok else None for lo, h, ok in
+                   zip(d128[:m, 0], d128[:m, 1], valid[:m])]
+        check(col_head(results["cast_from_decimal128"][0], m).to_pylist()
+              == want128, "cast_from_decimal on DECIMAL128 == Decimal")
+    fs = col_head(results["cast_from_float"][0], m).to_pylist()
+    check(all(s is None or float(s.replace("E", "e")) == v
+              for s, v in zip(fs, x["f64"][:m].tolist())),
+          "cast_from_float round-trips every value (Java's shortest digits)")
+    epoch = _dt.datetime(1970, 1, 1)
+    want_ts = []
+    for us, ok in zip(x["ts_us"][:m].tolist(), valid[:m]):
+        t = epoch + _dt.timedelta(microseconds=us)
+        frac = f"{t.microsecond:06d}".rstrip("0")
+        want_ts.append(t.strftime("%Y-%m-%d %H:%M:%S")
+                       + (f".{frac}" if frac else "") if ok else None)
+    check(col_head(results["cast_from_datetime"][0], m).to_pylist()
+          == want_ts, "cast_from_datetime == datetime")
+    for z in TZ_ZONES:
+        zi = ZoneInfo(z)
+        got = col_head(results[f"utc_to_local:{z}"][0], m).to_numpy()
+        for us, g in zip(x["ts_us"][:m:16].tolist(), got[::16].tolist()):
+            u = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc) + \
+                _dt.timedelta(microseconds=us)
+            if u.year < 1901:
+                continue  # before the zone's LMT rules: not the oracle
+            check(g - us == int(zi.utcoffset(u.astimezone(zi))
+                                .total_seconds()) * 10**6,
+                  f"utc_to_local {z} == zoneinfo at {u}")
+    bits = bloom_filter.bloom_build(dev["i64"], nb, nh).cpu().numpy()
+    for item, ok in zip(x["i64"][:4096].tolist(), valid[:4096]):
+        if ok:
+            check(all(bits[p] for p in _bloom_positions_py(item, nh, nb)),
+                  "bloom bits hold Spark's murmur3 positions")
+    probe = results["bloom_probe"][0]
+    self_probe = bloom_filter.bloom_might_contain(
+        bloom_filter.bloom_build(dev["i64"], nb, nh), dev["i64"], nh)
+    check(bool((self_probe.data != 0)[dev["i64"].validity].all()),
+          "no false negative on the build items")
+    fpp = float((probe.data != 0)[probe.valid_mask()].float().mean())
+    out["bloom"]["probe_positive_share"] = fpp
+    half = n // 2
+    tail = Column(D.INT64, data=dev["i64"].data[half:],
+                  validity=dev["i64"].validity[half:])
+    merged = bloom_filter.bloom_merge([
+        bloom_filter.bloom_build(col_head(dev["i64"], half), nb, nh),
+        bloom_filter.bloom_build(tail, nb, nh)])
+    check(torch.equal(merged, bloom_filter.bloom_build(dev["i64"], nb, nh)),
+          "bloom_merge of two halves == one build")
+    raw = results["interleave_bits_2x64"][0].children[0].data[:4096 * 16] \
+        .cpu().numpy().view(np.uint8).reshape(-1, 16)
+    for i in range(0, 4096, 64):
+        check(raw[i].tobytes() == _interleave_py(
+            [int(x["i64"][i]) & (2**64 - 1), int(x["d64"][i]) & (2**64 - 1)],
+            64), "interleave_bits == the Python interleaver")
+    codes, dic = results["dictionary_encode"]
+    tchars, toffs, tok = x["text"]
+    words = [bytes(tchars[toffs[i]:toffs[i + 1]]) for i in range(m)]
+    uniq = sorted({w for w, ok in zip(words, tok[:m]) if ok})
+    dl = [w.encode() for w in dic.to_pylist()]
+    check(set(uniq) <= set(dl) and dl == sorted(dl),
+          "the dictionary holds the distinct values in order")
+    cl = col_head(codes, m).to_pylist()
+    check(all((c is None) == (not ok) and (c is None or dl[c] == w)
+              for c, w, ok in zip(cl, words, tok[:m])),
+          "dictionary codes index their values")
+    # window: numpy oracle on the card's window of a 65,536-row sample
+    sm = columns(DEV, m, m)
+    rn, s, lo_, hi_ = win(sm)
+    p, o, v = x["part"][:m], x["i32"][:m] % 4096, x["i64"][:m]
+    f = x["f64"][:m]
+    order = np.lexsort((np.arange(m), o, p))
+    ok = valid[:m][order]
+    ps, os_ = p[order], o[order]
+    start = np.r_[True, ps[1:] != ps[:-1]]
+    seg = np.cumsum(start) - 1
+    seg_start = np.flatnonzero(start)[seg]
+    want_rn = np.arange(m) - seg_start + 1
+    peer_end = np.r_[(ps[1:] != ps[:-1]) | (os_[1:] != os_[:-1]), True]
+    end_of = np.minimum.accumulate(np.where(peer_end, np.arange(m), m)
+                                   [::-1])[::-1]
+    c = np.cumsum(np.where(ok, v[order], 0))
+    want_sum = (c - (c - np.where(ok, v[order], 0))[seg_start])[end_of]
+    check(np.array_equal(rn.data.cpu().numpy()[order], want_rn),
+          "window row_number == numpy")
+    check(np.array_equal(s.data.cpu().numpy()[order], want_sum),
+          "window running sum == numpy (RANGE peers)")
+    fo = np.where(ok, f[order], np.inf)
+    run_min = np.empty(m)
+    for a, b in zip(np.flatnonzero(start), np.r_[np.flatnonzero(start)[1:],
+                                                 m]):
+        run_min[a:b] = np.minimum.accumulate(fo[a:b])
+    got_min = lo_.data.cpu().numpy()[order]
+    has = np.cumsum(ok) - (np.cumsum(ok) - ok)[seg_start]
+    has = has[end_of] > 0
+    check(np.array_equal(got_min[has], run_min[end_of][has]),
+          "window running min == numpy")
+    # strings: Python on the sample
+    tl = [w.decode() if ok else None for w, ok in zip(words, tok[:m])]
+    for name, py in (("upper", str.upper),
+                     ("substring", lambda t: t[1:6]),
+                     ("replace", lambda t: t.replace("-", "__")),
+                     ("trim", lambda t: t.strip(" ")),
+                     ("split_part", lambda t: (t.split("-") + [""])[1]),
+                     ("lpad", lambda t: t[:16].rjust(16, "*"))):
+        check(col_head(results[name][0], m).to_pylist() ==
+              [None if t is None else py(t) for t in tl],
+              f"{name} == Python str")
+    out["sync_total"] = sum(r["syncs"] for r in out["ops"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11. nds: q64, q67, q97 and predicate-cast at one SF100 task's split
+# ---------------------------------------------------------------------------
+
+N_CUSTOMERS = 2_000_000          # NDS SF100 customer rows
+N_ITEMS = 204_000                # NDS SF100 item rows
+N_CATEGORIES = 10
+COUNTRIES = ["UNITED STATES", "GERMANY", "JAPAN", "BRAZIL", "INDIA",
+             "CHINA", "FRANCE", "KENYA", "PERU", "CANADA", "NORWAY",
+             "EGYPT", "MEXICO", "SPAIN", "CHILE", "GHANA", "ITALY",
+             "NEPAL", "POLAND", "TONGA"]
+COLORS = [a + b for a in ("", "light ", "dark ") for b in (
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished",
+    "chartreuse", "chiffon", "chocolate", "coral", "cornflower", "cornsilk",
+    "cream", "cyan", "dark", "deep", "dim", "dodger", "drab", "firebrick",
+    "floral", "forest", "frosted", "gainsboro")][:88] + ["plum", "misty"]
+PC_CATEGORIES = ["cat-1A", "cat-22B", "dog-3C", "cat-9", "fish-44D"]
+PC_DAY0 = 18000
+
+
+def _strings_of(choices, idx):
+    """STRING column buffers whose row i is ``choices[idx[i]]``."""
+    enc = [c.encode() for c in choices]
+    mat = np.zeros((len(enc), max(map(len, enc))), np.uint8)
+    for i, e in enumerate(enc):
+        mat[i, :len(e)] = np.frombuffer(e, np.uint8)
+    lens = np.array([len(e) for e in enc])[idx]
+    keep = np.arange(mat.shape[1])[None, :] < lens[:, None]
+    chars = mat[idx][keep]
+    offsets = np.zeros(len(idx) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return chars, offsets.astype(np.int32)
+
+
+def nds_columns(n: int, seed: int) -> dict:
+    """The nds phase's tables as writer columns (name, kind, values, valid,
+    dictionary), at one SF100 split: 2^24-row q64 store_sales and q67
+    fact, 2^23-row catalog_sales, returns a tenth of the split's
+    (item, ticket) pairs; customer, item, date_dim and store at SF100."""
+    rng = np.random.default_rng(seed + 64)
+    date = np.sort(rng.integers(DATE_SK0, DATE_SK0 + N_DAYS, n))
+    cust = rng.integers(1, N_CUSTOMERS + 1, n)
+    item = rng.integers(1, N_ITEMS + 1, n)
+    ss = [("ss_sold_date_sk", "int64", date, None, True),
+          ("ss_store_sk", "int64", rng.integers(1, N_STORES + 1, n), None,
+           True),
+          ("ss_customer_sk", "int64", cust, None, False),
+          ("ss_item_sk", "int64", item, None, False),
+          ("ss_ticket_number", "int64", np.arange(n), None, False),
+          ("ss_sales_price", "float64",
+           rng.integers(100, 20_000, n) / 100.0, None, False)]
+    ret = rng.choice(n, n // 10, replace=False)
+    sr = [("sr_item_sk", "int64", item[ret], None, False),
+          ("sr_ticket_number", "int64", ret, None, False),
+          ("sr_return_amt", "float64",
+           rng.integers(100, 6_000, len(ret)) / 100.0, None, False)]
+    customers = [("c_customer_sk", "int64", np.arange(1, N_CUSTOMERS + 1),
+                  None, False),
+                 ("c_birth_country", "string",
+                  [COUNTRIES[i].encode() for i in rng.integers(
+                      0, len(COUNTRIES), N_CUSTOMERS)], None, False)]
+    items = [("i_item_sk", "int64", np.arange(1, N_ITEMS + 1), None, False),
+             ("i_color", "string", [COLORS[i].encode() for i in rng.integers(
+                 0, len(COLORS), N_ITEMS)], None, False)]
+    q67 = [("store", "int64", rng.integers(1, N_STORES + 1, n), None, True),
+           ("cat", "int64", rng.integers(0, N_CATEGORIES, n), None, True),
+           ("item", "int64", rng.integers(1, N_ITEMS + 1, n), None, False),
+           ("price", "float64", rng.integers(100, 20_000, n) / 100.0, None,
+            False)]
+    m = n // 2
+    cs_cust = rng.integers(1, N_CUSTOMERS + 1, m)
+    cs_item = rng.integers(1, N_ITEMS + 1, m)
+    share = rng.random(m) < 0.3     # pairs bought in both channels
+    src = rng.integers(0, n, m)
+    cs_cust[share], cs_item[share] = cust[src[share]], item[src[share]]
+    cs = [("cs_sold_date_sk", "int64",
+           np.sort(rng.integers(DATE_SK0, DATE_SK0 + N_DAYS, m)), None, True),
+          ("cs_bill_customer_sk", "int64", cs_cust, None, False),
+          ("cs_item_sk", "int64", cs_item, None, False)]
+    dates, stores = dim_columns()
+    return {"store_sales": ss, "store_returns": sr, "customer": customers,
+            "item": items, "q67_sales": q67, "catalog_sales": cs,
+            "date_dim": dates, "store": stores}
+
+
+def _values(cols, name):
+    return next(c[2] for c in cols if c[0] == name)
+
+
+def q64_oracle_np(t: dict) -> dict:
+    ss = {c[0]: c[2] for c in t["store_sales"]}
+    sr = {c[0]: c[2] for c in t["store_returns"]}
+    colors = np.array([c.decode() for c in _values(t["item"], "i_color")])
+    item_ok = np.r_[False, np.isin(colors, Q64_COLORS)]
+    keep = item_ok[ss["ss_item_sk"]]
+    ret = np.zeros(len(keep))
+    ret[sr["sr_ticket_number"]] = sr["sr_return_amt"]
+    net = (ss["ss_sales_price"] - ret)[keep]
+    year = _values(t["date_dim"], "d_year")[
+        ss["ss_sold_date_sk"][keep] - DATE_DIM_SK0].astype(np.int64)
+    names = [nm.decode() for nm in _values(t["store"], "s_store_name")]
+    uniq_names = sorted(set(names))
+    name_id = np.r_[0, [uniq_names.index(nm) for nm in names]]
+    key = name_id[ss["ss_store_sk"][keep]] * 10_000 + year
+    u, inv = np.unique(key, return_inverse=True)
+    sums = np.bincount(inv, net)
+    cnts = np.bincount(inv)
+    return {(uniq_names[k // 10_000], int(k % 10_000)): (float(a), int(b))
+            for k, a, b in zip(u.tolist(), sums, cnts)}
+
+
+def q67_oracle_np(t: dict, top: int = 3) -> list:
+    c = {x[0]: x[2] for x in t["q67_sales"]}
+    key = (c["store"] * N_CATEGORIES + c["cat"]) * (N_ITEMS + 1) + c["item"]
+    u, inv = np.unique(key, return_inverse=True)
+    sales = np.bincount(inv, c["price"])
+    grp = u // (N_ITEMS + 1)
+    order = np.lexsort((-sales, grp))
+    g = grp[order]
+    first = np.r_[True, g[1:] != g[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(g)), 0))
+    kept = order[np.arange(len(g)) - start < top]
+    return sorted(zip((grp[kept] // N_CATEGORIES).tolist(),
+                      (grp[kept] % N_CATEGORIES).tolist(),
+                      [round(s, 6) for s in sales[kept].tolist()]))
+
+
+def q97_oracle_np(t: dict, lo: int, hi: int) -> tuple:
+    def pairs(cols, d, a, b):
+        c = {x[0]: x[2] for x in cols}
+        k = (c[d] >= lo) & (c[d] <= hi)
+        return np.unique(c[a][k] * (N_ITEMS + 1) + c[b][k])
+    s = pairs(t["store_sales"], "ss_sold_date_sk", "ss_customer_sk",
+              "ss_item_sk")
+    c = pairs(t["catalog_sales"], "cs_sold_date_sk", "cs_bill_customer_sk",
+              "cs_item_sk")
+    both = len(np.intersect1d(s, c, assume_unique=True))
+    return (len(s) - both, len(c) - both, both)
+
+
+def predicate_cast_inputs(n: int, seed: int):
+    rng = np.random.default_rng(seed + 336)
+    return (rng.integers(0, len(PC_CATEGORIES), n),
+            rng.integers(-10**6, 10**6, n),
+            rng.integers(PC_DAY0, PC_DAY0 + 10, n).astype(np.int32))
+
+
+def predicate_cast_oracle_np(cat, amt, day) -> dict:
+    import datetime as _dt
+    import re
+    hit = np.array([re.search(PREDICATE, c) is not None
+                    for c in PC_CATEGORIES])[cat]
+    sums = np.zeros(10, np.int64)
+    np.add.at(sums, day[hit] - PC_DAY0, amt[hit])
+    seen = np.bincount(day[hit] - PC_DAY0, minlength=10) > 0
+    return {(_dt.date(1970, 1, 1) + _dt.timedelta(days=PC_DAY0 + i))
+            .isoformat(): int(sums[i]) for i in range(10) if seen[i]}
+
+
+def phase_nds(torch, root, pqk, tracing, n: int, seed: int) -> dict:
+    import collections
+    from spark_rapids_jni_tpu_torch import dtypes as D
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    nroot = Path(root) / "nds"
+    nroot.mkdir()
+    t0 = time.perf_counter()
+    tables = nds_columns(n, seed)
+    for name, cols in tables.items():
+        write_parquet(nroot / f"{name}.parquet", cols,
+                      max(n // 16, 1) if len(cols[0][2]) >= n // 2
+                      else 1 << 20, "snappy")
+    out = {"phase": "nds", "fact_rows": n,
+           "files_s": time.perf_counter() - t0,
+           "bytes": {p.name: p.stat().st_size
+                     for p in sorted(nroot.iterdir())}}
+    n_pc = n // 4
+    cat, amt, day = predicate_cast_inputs(n_pc, seed)
+    chars, offs = _strings_of(PC_CATEGORIES, cat)
+    pc_table = Table([Column.string(chars, offs, device=DEV),
+                      Column.fixed(D.decimal64(-2), amt, device=DEV),
+                      Column.fixed(D.TIMESTAMP_DAYS, day, device=DEV)],
+                     ["cat", "amt", "d"])
+
+    def q5_like(got, want):
+        return q5_matches({k: (v[0], 0.0, v[1]) for k, v in got.items()},
+                          {k: (v[0], 0.0, v[1]) for k, v in want.items()})
+    queries = [
+        ("q64", n, lambda: q64_lite(nroot, "device", DEV),
+         q64_oracle_np(tables), q5_like),
+        ("q67", n, lambda: q67_lite(nroot, "device", DEV),
+         q67_oracle_np(tables), lambda a, b: a == b),
+        ("q97", n + n // 2, lambda: q97_lite(nroot, "device", DEV,
+                                              *Q5_DATES),
+         q97_oracle_np(tables, *Q5_DATES), lambda a, b: a == b),
+        ("predicate_cast", n_pc, lambda: (predicate_cast_lite(pc_table), {}),
+         predicate_cast_oracle_np(cat, amt, day), lambda a, b: a == b),
+    ]
+    out["launches"] = {k: 0 for k in DECODE_KERNELS}
+    for name, rows, fn, want, same in queries:
+        rec = {"rows": rows}
+        (got, _), rec["cold_s"] = wall(torch, fn)
+        check(same(got, want), f"{name} (cold) == numpy oracle")
+        tracing.reset_counters("kernel.")
+        (got, info), rec["warm_s"] = wall(torch, fn)
+        check(same(got, want), f"{name} (warm) == numpy oracle")
+        rec["scan"] = {k: info[k] for k in ("groups_read", "groups_pruned",
+                                            "dims_s") if k in info}
+        rec["scan"]["host_decoded_groups"] = dict(collections.Counter(
+            f for f, _ in info.get("fallbacks", ())))
+        rec["kernel_launches"] = {k: pqk.launches(k) for k in DECODE_KERNELS}
+        if name != "predicate_cast":   # the three that scan Parquet
+            for k, v in rec["kernel_launches"].items():
+                check(v > 0, f"{name}'s warm device-route scan launched {k}")
+                out["launches"][k] += v
+        rec["file_rows_per_s"] = rows / rec["warm_s"]
+        prof = {}
+        rec["syncs"], sites = count_syncs(torch, lambda: prof.update(
+            profile_top(torch, fn, top=5)))
+        rec["sync_sites"] = dict(sorted(sites.items(),
+                                        key=lambda kv: -kv[1])[:5])
+        rec["profile"] = prof
+        rec["result_size"] = len(got) if hasattr(got, "__len__") else 1
+        out[name] = rec
+        emit({"phase": "nds_query", "query": name, **rec})
+        torch.cuda.empty_cache()
+    out["q97_counts"] = list(queries[2][3])
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
@@ -1636,6 +2701,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1 << 24)
     ap.add_argument("--string-rows", type=int, default=1 << 22)
     ap.add_argument("--fact-rows", type=int, default=1 << 24)
+    ap.add_argument("--ops-rows", type=int, default=1 << 24)
+    ap.add_argument("--ops-string-rows", type=int, default=1 << 22)
+    ap.add_argument("--nds-rows", type=int, default=1 << 24)
     args = ap.parse_args()
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
@@ -1712,6 +2780,16 @@ def main() -> int:
         engine = phase_engine(torch, root, fact, dates, stores, pqk, tracing,
                               q5, copy_gbps)
         emit(engine)
+        del fact
+        torch.cuda.empty_cache()
+
+        ops = phase_ops(torch, tracing, args.ops_rows, args.ops_string_rows,
+                        args.seed)
+        emit({k: v for k, v in ops.items() if k != "ops"})
+        torch.cuda.empty_cache()
+
+        nds = phase_nds(torch, root, pqk, tracing, args.nds_rows, args.seed)
+        emit(nds)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1735,6 +2813,7 @@ def main() -> int:
         "replaces": jax_pkg + "parquet_decode.py:336",
         "launches": q5["launches"]["plain_gather"],
         "engine_launches": engine["launches"]["plain_gather"],
+        "nds_launches": nds["launches"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -1750,6 +2829,7 @@ def main() -> int:
             "source": pkg + "parquet_decode.cu", "replaces": jax_pkg + ref,
             "launches": q5["launches"][name],
             "engine_launches": engine["launches"][name],
+            "nds_launches": nds["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

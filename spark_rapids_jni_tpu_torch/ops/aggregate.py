@@ -39,8 +39,7 @@ from .strings_common import from_padded_bytes, to_padded_bytes
 AGGS = ("sum", "min", "max", "mean", "count", "count_all", "var", "std",
         "sumsq", "fsum", "first", "last", "collect_list")
 
-# ops this port implements; collect_list and nunique are still to port
-PORTED_OPS = frozenset(AGGS) - {"collect_list"}
+_DISTINCT_OPS = ("nunique", "count_distinct")  # Spark count(DISTINCT col)
 
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
@@ -61,7 +60,8 @@ def _minmax_key(col: Column):
     floats), so empty groups hold the same bits."""
     d = col.dtype
     if d.id == TypeId.DECIMAL128:
-        raise NotImplementedError("min/max over DECIMAL128")
+        # as in the JAX package, which raises on the [n, 2] limb pairs
+        raise ValueError("min/max over DECIMAL128 is not supported")
     if d.is_floating:
         def decode(red):
             return decode_minmax_bits(red ^ SIGN64, d)
@@ -142,7 +142,8 @@ def _agg_column(col, op: str, gid, n: int, live) -> Column:
     if op in ("sum", "mean"):
         tid = col.dtype.id
         if tid == TypeId.DECIMAL128:
-            raise NotImplementedError("sum/mean over DECIMAL128")
+            # as in the JAX package, which raises on the [n, 2] limb pairs
+            raise ValueError("sum/mean over DECIMAL128 is not supported")
         is_float = col.dtype.is_floating
         vals = col.data.to(torch.float64) if is_float else \
             int64_values(col.dtype, col.data)
@@ -190,7 +191,7 @@ def _agg_column(col, op: str, gid, n: int, live) -> Column:
         return Column(col.dtype, data=decode(red), validity=has_any)
 
     if op == "collect_list":
-        raise NotImplementedError("collect_list is not ported yet")
+        raise ValueError("collect_list builds a LIST column; use groupby")
     raise ValueError(f"unknown aggregation {op!r}; expected one of {AGGS}")
 
 
@@ -232,6 +233,106 @@ def groupby_padded(table: Table, key_names: list, aggs: list[tuple],
     return out_keys, out_aggs, ngroups
 
 
+def _key_segments(table: Table, key_names: list, value_col=None):
+    """(order, key_bounds, pair_bounds) of one stable lexsort over the key
+    words (then the value's, with ``value_col``).  Group i of the base
+    groupby is key segment i here: both ascend in the key words.
+    ``pair_bounds`` marks each distinct (key, value) run (else None)."""
+    kwords = encode_keys([SortKey(table.column(k)) for k in key_names])
+    vwords = [] if value_col is None else encode_keys([SortKey(value_col)])
+    order = lexsort(kwords + vwords)
+    kb = rows_differ_from_prev(kwords, order)
+    pb = None if value_col is None else \
+        kb | rows_differ_from_prev(vwords, order)
+    return order, kb, pb
+
+
+def _assemble_special_aggs(base: Table, nkeys: int, aggs: list,
+                           names: list | None, is_special, build) -> Table:
+    """Base scalar-agg columns interleaved with specially built columns in
+    the caller's agg order."""
+    out_cols = list(base.columns[:nkeys])
+    oi = nkeys
+    for ref, op in aggs:
+        if is_special(op):
+            out_cols.append(build(ref))
+        else:
+            out_cols.append(base.columns[oi])
+            oi += 1
+    agg_names = names or [f"{op}_{ref if isinstance(ref, str) else i}"
+                          for i, (ref, op) in enumerate(aggs)]
+    return Table(out_cols, list(base.names[:nkeys]) + list(agg_names))
+
+
+def _base_groupby(table, key_names, aggs, special, device) -> Table:
+    others = [(r, op) for r, op in aggs if op not in special]
+    return groupby(table, key_names, others or [(key_names[0], "count_all")],
+                   device=device)
+
+
+def _groupby_with_collect(table: Table, key_names: list, aggs: list,
+                          names: list | None, device) -> Table:
+    """groupby with collect_list aggs: the list columns are assembled on
+    the host over the key segments, as the JAX package assembles them, and
+    placed on ``device``.  Spark semantics: null elements are dropped; a
+    group of nulls gives [] not null."""
+    table = table.to(device)
+    base = _base_groupby(table, key_names, aggs, ("collect_list",), device)
+    order, bounds, _ = _key_segments(table, key_names)
+    order = order.cpu().numpy()
+    n = len(order)
+    starts = np.flatnonzero(bounds.cpu().numpy())
+    ends = np.append(starts[1:], n)
+
+    def collect(ref) -> Column:
+        col = ref if isinstance(ref, Column) else table.column(ref)
+        col = col.to(device)
+        valid = col.validity_numpy()[order]
+        if col.dtype.is_string:
+            vals = col.to_pylist()
+            groups = [[vals[r] for r in order[a:b] if vals[r] is not None]
+                      for a, b in zip(starts, ends)]
+            child = Column.from_pylist([v for g in groups for v in g],
+                                       dtype=col.dtype, device=device)
+        else:
+            vals = col.data.cpu().numpy()[order]
+            groups = [vals[a:b][valid[a:b]] for a, b in zip(starts, ends)]
+            flat = np.concatenate(groups) if groups else \
+                np.zeros((0,) + vals.shape[1:], vals.dtype)
+            child = Column(col.dtype, data=torch.from_numpy(flat).to(device))
+        lens = np.fromiter((len(g) for g in groups), np.int64, len(starts))
+        offsets = np.zeros(len(starts) + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        if offsets[-1] > np.iinfo(np.int32).max:
+            raise ValueError("collect_list output exceeds int32 offsets")
+        return Column.list_(child, offsets.astype(np.int32), device=device)
+
+    return _assemble_special_aggs(base, len(key_names), aggs, names,
+                                  lambda op: op == "collect_list", collect)
+
+
+def _groupby_with_nunique(table: Table, key_names: list, aggs: list,
+                          names: list | None, device) -> Table:
+    """groupby with count(DISTINCT col) aggs, on ``device``: one lexsort
+    over (keys, value) per distinct column; each group counts the first
+    row of every distinct non-null value (Spark: nulls are not counted,
+    an all-null group counts 0)."""
+    table = table.to(device)
+    base = _base_groupby(table, key_names, aggs, _DISTINCT_OPS, device)
+    ngroups = base.num_rows
+
+    def nunique(ref) -> Column:
+        col = table.column(ref)
+        order, kb, pb = _key_segments(table, key_names, value_col=col)
+        gid = torch.cumsum(kb.to(torch.int64), 0) - 1
+        take = (pb & col.valid_mask()[order]).to(torch.int64)
+        cnt = torch.zeros(ngroups, dtype=torch.int64, device=gid.device)
+        return Column(INT64, data=cnt.index_add_(0, gid, take))
+
+    return _assemble_special_aggs(base, len(key_names), aggs, names,
+                                  lambda op: op in _DISTINCT_OPS, nunique)
+
+
 @traced("groupby")
 def groupby(table: Table, key_names: list, aggs: list[tuple],
             names: list | None = None, device=_device.DEFAULT) -> Table:
@@ -239,15 +340,21 @@ def groupby(table: Table, key_names: list, aggs: list[tuple],
     compact Table on ``device``.
 
     op in {sum, min, max, mean, count, count_all, var, std, sumsq, fsum,
-    first, last}.  var/std are sample (ddof=1) moments.  collect_list and
-    nunique / count_distinct are not ported yet and raise.
+    first, last, collect_list} plus nunique / count_distinct (Spark
+    count(DISTINCT col): null values not counted).  var/std are sample
+    (ddof=1) moments; collect_list drops null elements and returns a LIST
+    column, assembled on the host as in the JAX package.
     """
     for _, op in aggs:
-        if op in ("collect_list", "nunique", "count_distinct"):
-            raise NotImplementedError(f"aggregation {op!r} is not ported yet")
-        if op not in PORTED_OPS:
+        if op not in AGGS and op not in _DISTINCT_OPS:
             raise ValueError(
                 f"unknown aggregation {op!r}; expected one of {AGGS}")
+    if any(op in _DISTINCT_OPS for _, op in aggs):
+        return _groupby_with_nunique(table, key_names, aggs, names,
+                                     _device.resolve(device))
+    if any(op == "collect_list" for _, op in aggs):
+        return _groupby_with_collect(table, key_names, aggs, names,
+                                     _device.resolve(device))
     out_keys, out_aggs, ngroups = groupby_padded(table, key_names, aggs,
                                                  device=device)
     ng = int(ngroups)

@@ -243,7 +243,8 @@ def _long_lane_u64(col: Column) -> torch.Tensor:
     if col.dtype.id == TypeId.FLOAT64:
         return normalize_f64_bits(col.data.view(torch.int64))
     if col.dtype.id == TypeId.DECIMAL128:
-        raise NotImplementedError("hashing DECIMAL128")
+        # the JAX package raises here too (a [n, 2] lane against [n] hashes)
+        raise ValueError("hashing DECIMAL128 columns is not supported")
     return col.data.to(torch.int64)
 
 

@@ -53,7 +53,7 @@ def _fixed_to_u64(col: Column) -> torch.Tensor:
     tid = col.dtype.id
     data = col.data
     if tid == TypeId.DECIMAL128:
-        raise NotImplementedError("DECIMAL128 sort keys")
+        raise ValueError("a DECIMAL128 key is two words: use encode_key")
     if tid == TypeId.FLOAT64:
         return f64_order_key(normalize_f64_bits(data.view(torch.int64)))
     if tid == TypeId.FLOAT32:
@@ -64,6 +64,12 @@ def _fixed_to_u64(col: Column) -> torch.Tensor:
         return int64_values(col.dtype, data)
     # signed integral family (ints, timestamps, durations, decimal unscaled)
     return data.to(torch.int64) ^ SIGN64
+
+
+def _decimal128_words(col: Column) -> list[torch.Tensor]:
+    """(hi ^ sign, lo): the unsigned order of the pair is the int128 order.
+    (The JAX package's encoding yields one [n, 2] word and no valid order.)"""
+    return [col.data[:, 1] ^ SIGN64, col.data[:, 0]]
 
 
 def _string_words(col: Column) -> list[torch.Tensor]:
@@ -86,8 +92,12 @@ def _string_words(col: Column) -> list[torch.Tensor]:
 def encode_key(key: SortKey) -> list[torch.Tensor]:
     """Primary-first list of unsigned-order words (int64) for one key."""
     col: Column = key.col
-    words = _string_words(col) if col.dtype.is_string else \
-        [_fixed_to_u64(col)]
+    if col.dtype.is_string:
+        words = _string_words(col)
+    elif col.dtype.id == TypeId.DECIMAL128:
+        words = _decimal128_words(col)
+    else:
+        words = [_fixed_to_u64(col)]
     if not key.ascending:
         words = [~wd for wd in words]
     if col.validity is not None:

@@ -10,7 +10,8 @@ import torch
 from ..columnar import Column, Table
 from ..dtypes import TypeId
 from ..utils.tracing import traced
-from .order import SortKey, sort_indices
+from .order import (SortKey, encode_keys, lexsort, rows_differ_from_prev,
+                    sort_indices)
 from .strings_common import ragged_copy
 
 
@@ -127,6 +128,20 @@ def _concat_columns(parts: list[Column]) -> Column:
         child = _concat_columns([p.children[0] for p in parts])
         return Column.list_(child, offsets.to(torch.int32), valid, device=dev)
     return Column(d0, data=torch.cat([p.data for p in parts]), validity=valid)
+
+
+@traced("distinct")
+def distinct(table: Table, subset: list | None = None) -> Table:
+    """Spark dropDuplicates: the first row of each key group, whole rows,
+    in input order; keys are ``subset`` (default: every column) and null
+    keys compare equal (one null group)."""
+    keys = [SortKey(c) for c in (table.columns if subset is None
+                                 else [table.column(k) for k in subset])]
+    words = encode_keys(keys)
+    order = lexsort(words)
+    # the stable sort makes each group's boundary row its earliest row
+    keep = torch.sort(order[rows_differ_from_prev(words, order)]).values
+    return gather_table(table, keep)
 
 
 def slice_table(table: Table, start: int, length: int) -> Table:
