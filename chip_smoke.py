@@ -3,10 +3,13 @@
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives a Spark stage end to end on the card, and scans
 NDS-shaped Parquet files on the card for q5-lite, hand-wired and as an
-engine plan.
+engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, and
+the exchange layer on a mesh of 8 shards of the card.
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
+        [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
+        [--exchange-rows 16777216] [--exchange-string-rows 4194304]
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -102,6 +105,23 @@ Phases (any failed check raises, and the script exits non-zero):
             each warm run); every query runs cold and warm against a numpy
             oracle (counts exact, sums within rel 1e-9), with a profile
             and a sync count.
+12. orc     q95-lite (tests/test_query_nds.py wiring) at one split:
+            web_sales of 2^22 rows (about 5 lines an order, warehouses
+            1-5) in 2^20-row zlib stripes and web_returns (a tenth of the
+            orders), written by the port's ORC writer (the card's host has
+            no pyarrow), read back onto the card bit for bit, run cold and
+            warm against a numpy oracle and the port on the CPU (count
+            exact, sums within rel 1e-9); write, read and query times,
+            launches and syncs.
+13. exchange  a mesh of 8 shards on the card: the stage's 2^24-row table
+            shuffled by its INT32 key and a 2^22-row table by a STRING key:
+            capacity from the counts, wire bytes, skew, warm times, syncs
+            (set_sync_debug_mode("warn"): the counts fetch only), every
+            row once and on the shard pmod(murmur3(key), 8) names, slots
+            bit for bit against the port on the CPU over 2^20 rows,
+            placement against Python's Spark murmur3 on 65,536 rows;
+            distributed groupby and join against one device; engine q5
+            planned with distribute=True against the one-shard plan.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -1318,6 +1338,72 @@ def q97_lite(root, route: str, device, date_lo: int, date_hi: int):
     return (ssk.num_rows - both, csk.num_rows - both, both), info
 
 
+Q95_COLUMNS = ["ws_order_number", "ws_warehouse_sk", "ws_ship_date_sk",
+               "ws_ext_ship_cost", "ws_net_profit"]
+
+
+def q95_lite(ws, wr, date_lo: int, date_hi: int) -> tuple:
+    """q95-lite (tests/test_query_nds.py wiring) over port tables on one
+    device: web orders shipped from more than one warehouse (a self
+    ``inner_join`` on the order number, a differing-warehouse mask, a
+    groupby), shipped in [date_lo, date_hi] and returned (two
+    ``left_semi_join``s); count-distinct as groupby-then-count.  Returns
+    (orders, ship cost sum, net profit sum)."""
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.join import (inner_join,
+                                                     left_semi_join)
+    from spark_rapids_jni_tpu_torch.ops.selection import apply_boolean_mask
+    dev = ws.columns[0].device
+    sub = ws.select(["ws_order_number", "ws_warehouse_sk"])
+    pairs = inner_join(sub, sub, ["ws_order_number"], device=dev)
+    diff = apply_boolean_mask(pairs, pairs["ws_warehouse_sk"].data
+                              != pairs["ws_warehouse_sk_r"].data)
+    multi = groupby(diff, ["ws_order_number"],
+                    [("ws_order_number", "count_all")], names=["n"],
+                    device=dev)
+    d = ws["ws_ship_date_sk"].data
+    in_window = apply_boolean_mask(ws, (d >= date_lo) & (d <= date_hi))
+    kept = left_semi_join(in_window, multi, ["ws_order_number"], device=dev)
+    kept = left_semi_join(kept, wr, ["ws_order_number"], ["wr_order_number"],
+                          device=dev)
+    distinct = groupby(kept, ["ws_order_number"],
+                       [("ws_ext_ship_cost", "sum"),
+                        ("ws_net_profit", "sum")],
+                       names=["ship", "profit"], device=dev)
+    return (distinct.num_rows, float(distinct["ship"].data.sum()),
+            float(distinct["profit"].data.sum()))
+
+
+def q95_columns(n: int, seed: int) -> tuple:
+    """One web_sales split of ``n`` rows (about 5 lines an order, warehouses
+    1-5, ship dates over 300 days, costs and profits in cents) and its
+    web_returns: a tenth of the orders.  Host numpy columns."""
+    rng = np.random.default_rng(seed + 95)
+    n_orders = max(n // 5, 1)
+    ws = {"ws_order_number": rng.integers(0, n_orders, n),
+          "ws_warehouse_sk": rng.integers(1, 6, n),
+          "ws_ship_date_sk": rng.integers(2_450_800, 2_451_100, n),
+          "ws_ext_ship_cost": np.round(rng.uniform(1, 50, n), 2),
+          "ws_net_profit": np.round(rng.uniform(-20, 80, n), 2)}
+    wr = {"wr_order_number": rng.choice(n_orders, max(n_orders // 10, 1),
+                                        replace=False)}
+    return ws, wr
+
+
+def q95_oracle_np(ws: dict, wr: dict, date_lo: int, date_hi: int) -> tuple:
+    """q95-lite in numpy: (orders, ship cost sum, net profit sum)."""
+    order, wh = ws["ws_order_number"], ws["ws_warehouse_sk"]
+    pairs = np.unique(np.stack([order, wh], axis=1), axis=0)
+    uo, cnt = np.unique(pairs[:, 0], return_counts=True)
+    multi = uo[cnt > 1]
+    d = ws["ws_ship_date_sk"]
+    keep = (d >= date_lo) & (d <= date_hi) & np.isin(order, multi) & \
+        np.isin(order, wr["wr_order_number"])
+    return (int(np.unique(order[keep]).shape[0]),
+            float(ws["ws_ext_ship_cost"][keep].sum()),
+            float(ws["ws_net_profit"][keep].sum()))
+
+
 def predicate_cast_lite(table):
     """predicate-cast-lite over a port Table (cat STRING, amt DECIMAL64
     scale -2, d DATE): RLIKE outside the rewrite set (the host escape),
@@ -2020,11 +2106,8 @@ def _py_float(s: str):
     m = re.fullmatch(r"[+-]?(\d*)\.?(\d*)(?:[eE]([+-]?\d+))?", t)
     if not m or not (m.group(1) or m.group(2)):
         return None
-    if not (m.group(1) + m.group(2)).strip("0") and \
-            int(m.group(3) or 0) - len(m.group(2)) >= 309:
-        # a zero mantissa times a power of ten past 1e308: NaN in both
-        # packages (0 x inf), a fault of the reference kept for parity
-        return float("nan")
+    # a zero mantissa reads 0.0 whatever the exponent ("0e999"), as in
+    # Java and the port (the JAX package reads 0 x inf = NaN)
     return float(t)
 
 
@@ -2063,6 +2146,46 @@ def _murmur_long_py(v: int, seed: int) -> int:
     h ^= h >> 13
     h = (h * 0xC2B2AE35) & M
     return h ^ (h >> 16)
+
+
+def _murmur_py(words, tail: bytes, length: int, seed: int) -> int:
+    """Spark Murmur3_x86_32 over 32-bit ``words``, then each ``tail`` byte
+    mixed on its own as a sign-extended int (hashUnsafeBytes), finalized
+    with ``length`` (u32 result)."""
+    M = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & M
+
+    def mix(h, k):
+        k = rotl((k * 0xCC9E2D51) & M, 15) * 0x1B873593 & M
+        return (rotl(h ^ k, 13) * 5 + 0xE6546B64) & M
+    h = seed & M
+    for w in words:
+        h = mix(h, w & M)
+    for b in tail:
+        h = mix(h, (b - 256 if b > 127 else b) & M)
+    h ^= length
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & M
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & M
+    return h ^ (h >> 16)
+
+
+def spark_partition_py(value, n: int, seed: int = 42) -> int:
+    """Spark HashPartitioning of one INT32 or STRING key (None: the seed
+    passes through): pmod(murmur3(value), n), in Python."""
+    if value is None:
+        h = seed
+    elif isinstance(value, (bytes, str)):
+        b = value.encode() if isinstance(value, str) else value
+        nb = len(b) // 4 * 4
+        h = _murmur_py([int.from_bytes(b[i:i + 4], "little")
+                        for i in range(0, nb, 4)], b[nb:], len(b), seed)
+    else:
+        h = _murmur_py([int(value)], b"", 4, seed)
+    return (h - (1 << 32) if h >= 1 << 31 else h) % n
 
 
 def _bloom_positions_py(item: int, k: int, num_bits: int):
@@ -2331,8 +2454,9 @@ def phase_ops(torch, tracing, n: int, n_str: int, seed: int) -> dict:
               or (math.isnan(v) and math.isnan(w))
               for v, w in zip(fv.tolist(), want_f)),
           "cast_to_float values within 2 ulp of Python float()")
-    out["cast_to_float_zero_mantissa_nan"] = sum(
-        w is not None and math.isnan(w) for w in want_f)
+    out["cast_to_float_zero_mantissa_rows"] = sum(
+        w is not None and w == 0.0 and any(c in "eE" for c in s)
+        for s, w in zip(strs, want_f))
     i64 = x["i64"][:m]
     check(col_head(results["cast_from_integer"][0], m).to_pylist() ==
           [str(int(v)) if ok else None for v, ok in zip(i64, valid[:m])],
@@ -2687,6 +2811,294 @@ def phase_nds(torch, root, pqk, tracing, n: int, seed: int) -> dict:
 
 # ---------------------------------------------------------------------------
 
+ORC_STRIPE_ROWS = 1 << 20
+Q95_DATES = (2_450_900, 2_451_000)
+ALL_KERNELS = ("interleave_planes", "deinterleave_wire") + DECODE_KERNELS
+SHARDS = 8                 # the JAX package's 8-device mesh, on one card
+
+
+def kernel_launches(tracing) -> dict:
+    """Every kernel wrapper's launch count since the last reset."""
+    return {k: tracing.counter_value("kernel." + k) for k in ALL_KERNELS}
+
+
+def q95_close(a: tuple, b: tuple, rel: float = 1e-9) -> bool:
+    return a[0] == b[0] and all(abs(x - y) <= rel * max(abs(y), 1.0)
+                                for x, y in zip(a[1:], b[1:]))
+
+
+def phase_orc(torch, root, tracing, n: int, seed: int) -> dict:
+    """q95-lite over ORC files the port's writer makes (zlib, 2^20-row
+    stripes), read on the card, against a numpy oracle and the port on the
+    CPU.  The read is host work: RLE runs decode in Python and numpy."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.io import ORCFile, read_orc, write_orc
+    out = {"phase": "orc", "rows": n, "stripe_rows": ORC_STRIPE_ROWS,
+           "dates": list(Q95_DATES)}
+    ws, wr = q95_columns(n, seed)
+    paths = (root / "web_sales.orc", root / "web_returns.orc")
+    t0 = time.perf_counter()
+    write_orc(Table.from_pydict(ws, device="cpu"), paths[0],
+              compression="zlib", stripe_rows=ORC_STRIPE_ROWS)
+    write_orc(Table.from_pydict(wr, device="cpu"), paths[1],
+              compression="zlib")
+    out["write_s"] = time.perf_counter() - t0
+    out["bytes"] = {p.name: p.stat().st_size for p in paths}
+    out["stripes"] = ORCFile(paths[0]).num_stripes
+    check(out["stripes"] == -(-n // ORC_STRIPE_ROWS),
+          "web_sales has one stripe per 2^20 rows")
+    tracing.reset_counters("kernel.")
+    (wst, wrt), out["read_s"] = wall(torch, lambda: (
+        read_orc(paths[0], device=DEV), read_orc(paths[1], device=DEV)))
+    out["read_rows_per_s"] = (n + len(wr["wr_order_number"])) / \
+        out["read_s"]
+    for name, vals in list(ws.items()) + list(wr.items()):
+        t = wst if name in ws else wrt
+        got = t[name].data.cpu().numpy()
+        check(t[name].validity is None and
+              np.array_equal(got.view(np.uint8), vals.view(np.uint8)),
+              f"ORC {name} reads back bit for bit on the card")
+    want = q95_oracle_np(ws, wr, *Q95_DATES)
+    got, out["cold_s"] = wall(torch, lambda: q95_lite(wst, wrt, *Q95_DATES))
+    check(q95_close(got, want), "q95-lite on the card (cold) == numpy")
+    got, out["warm_s"] = wall(torch, lambda: q95_lite(wst, wrt, *Q95_DATES))
+    check(q95_close(got, want), "q95-lite on the card (warm) == numpy")
+    out["launches"] = kernel_launches(tracing)
+    out["syncs"], out["sync_sites"] = count_syncs(
+        torch, lambda: q95_lite(wst, wrt, *Q95_DATES))
+    cpu, out["cpu_s"] = wall(torch, lambda: q95_lite(
+        wst.to("cpu"), wrt.to("cpu"), *Q95_DATES))
+    check(q95_close(got, cpu), "q95-lite on the card == the port on the CPU")
+    out["result"] = {"orders": got[0], "ship_cost": got[1],
+                     "net_profit": got[2]}
+    out["file_rows_per_s"] = n / out["warm_s"]
+    return out
+
+
+def _sorted_by(torch, table, name):
+    """The table's rows in ascending order of one unique column."""
+    from spark_rapids_jni_tpu_torch.ops.selection import gather_table
+    return gather_table(table, torch.argsort(table[name].data, stable=True))
+
+
+def _same_values(torch, a, b) -> bool:
+    """Same type, validity and values at the valid rows (bits for
+    fixed-width columns, bytes for strings); a missing validity is all
+    valid, and what a null row holds is not compared."""
+    from spark_rapids_jni_tpu_torch.ops.strings_common import \
+        to_padded_bytes
+    if a.dtype != b.dtype or a.size != b.size:
+        return False
+    va, vb = a.valid_mask(), b.valid_mask().to(a.valid_mask().device)
+    if not torch.equal(va, vb):
+        return False
+    if a.dtype.is_string:
+        w = max(string_width(a), string_width(b))
+        (ma, la), (mb, lb) = to_padded_bytes(a, w), to_padded_bytes(b, w)
+        mb, lb = mb.to(ma.device), lb.to(la.device)
+        return bool(((la == lb) | ~va).all()) and \
+            bool(((ma == mb).all(dim=1) | ~va).all())
+    da = a.data.contiguous().view(torch.uint8).reshape(a.size, -1)
+    db = b.data.to(a.data.device).contiguous().view(torch.uint8) \
+        .reshape(b.size, -1)
+    return bool(((da == db).all(dim=1) | ~va).all())
+
+
+def string_width(col) -> int:
+    from spark_rapids_jni_tpu_torch.ops.strings_common import \
+        string_width_bucket
+    return string_width_bucket(col)
+
+
+def _tables_equal(torch, a, b, exact: bool = False) -> bool:
+    """Same names and columns: bit for bit (``exact``: validity None-ness
+    and null rows too) or by ``_same_values``."""
+    return list(a.names) == list(b.names) and all(
+        same_column(x, y) if exact else _same_values(torch, x, y)
+        for x, y in zip(a.columns, b.columns))
+
+
+def _live_table(torch, table, ok):
+    from spark_rapids_jni_tpu_torch.ops.selection import gather_table
+    return gather_table(table, torch.nonzero(ok, as_tuple=True)[0])
+
+
+def phase_exchange(torch, root, tracing, n: int, n_str: int,
+                   seed: int) -> dict:
+    """The exchange layer on a mesh of 8 shards of the card: the stage's
+    2^24-row table shuffled by its INT32 key and a 2^22-row table by a
+    STRING key (slots bit for bit against the port on the CPU over 2^20
+    rows, placement against Python's Spark murmur3 on 65,536 rows, no row
+    lost or added), distributed groupby and join against one device, and
+    engine q5 planned with distribute=True against the one-shard plan."""
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import (
+        HostColumn, table_from_numpy)
+    from spark_rapids_jni_tpu_torch.dtypes import INT32, INT64
+    from spark_rapids_jni_tpu_torch.engine.verify import plan_exchanges
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import \
+        fixed_width_layout
+    from spark_rapids_jni_tpu_torch.parallel import distributed as dist
+    from spark_rapids_jni_tpu_torch.parallel import make_mesh
+    from spark_rapids_jni_tpu_torch.parallel import shuffle as sh
+    from spark_rapids_jni_tpu_torch.utils.config import config
+    out = {"phase": "exchange", "shards": SHARDS, "rows": n,
+           "string_rows": n_str}
+    mesh, cpu_mesh = make_mesh(SHARDS, device=DEV), \
+        make_mesh(SHARDS, device="cpu")
+    cols = stage_columns(n, seed)
+    table = table_from_numpy([HostColumn(t, s, d, v)
+                              for _, t, s, d, v in cols],
+                             [c[0] for c in cols], device=DEV)
+
+    def case(tbl, key, rows):
+        rec = {}
+        counts = sh.partition_counts(tbl, mesh, [key])
+        st = sh.device_load_stats(counts.sum(axis=0))
+        rec["capacity"] = sh.cap_bucket(int(counts.max()))
+        flat = tbl
+        if any(c.dtype.is_string for c in tbl.columns):
+            from spark_rapids_jni_tpu_torch.parallel.stringplane import \
+                explode_strings
+            flat = explode_strings(tbl)[0]
+        row_size = fixed_width_layout(flat.dtypes()).row_size
+        rec["row_bytes"] = row_size
+        rec["wire_bytes"] = SHARDS * SHARDS * rec["capacity"] * row_size
+        rec["skew"], rec["straggler_share"] = st["skew"], \
+            st["straggler_share"]
+        rec["dest_rows"] = st["dev_rows"]
+        _, rec["cold_s"] = wall(torch, lambda: sh.shuffle_table_padded(
+            tbl, mesh, [key]))
+        tracing.reset_counters("kernel.")
+        (got, ok, ovf), rec["warm_s"] = wall(
+            torch, lambda: sh.shuffle_table_padded(tbl, mesh, [key]))
+        rec["launches"] = kernel_launches(tracing)
+        rec["syncs"], rec["sync_sites"] = count_syncs(
+            torch, lambda: sh.shuffle_table_padded(tbl, mesh, [key]))
+        rec["rows_per_s"] = rows / rec["warm_s"]
+        check(int(ovf) == 0 and int(ok.sum()) == rows,
+              f"{key} shuffle: every row arrived once, no overflow")
+        check(got.num_rows == SHARDS * SHARDS * rec["capacity"],
+              f"{key} shuffle: the counts sized the grid")
+        # placement: every live row sits on the shard its key hashes to
+        pid = sh.partition_ids(Table([got[key]], [key]), SHARDS)
+        shard = torch.arange(got.num_rows, device=ok.device) // \
+            (SHARDS * rec["capacity"])
+        check(bool((pid.to(torch.int64) == shard)[ok].all()),
+              f"{key} shuffle: rows placed by pmod(murmur3(key), 8)")
+        # lossless: the live rows are the input rows
+        check(_tables_equal(torch, _sorted_by(torch, tbl, "row"),
+                            _sorted_by(torch, _live_table(torch, got, ok),
+                                       "row")),
+              f"{key} shuffle: the live rows are the input's")
+        # bit for bit against the port on the CPU over a slice
+        m = min(CPU_SLICE, rows) // SHARDS * SHARDS
+        part = Table([col_head(c, m) for c in tbl.columns], tbl.names)
+        dg, dok, _ = sh.shuffle_table_padded(part, mesh, [key])
+        cg, cok, _ = sh.shuffle_table_padded(part.to("cpu"), cpu_mesh,
+                                             [key])
+        check(torch.equal(dok.cpu(), cok)
+              and _tables_equal(torch, dg, cg, exact=True),
+              f"{key} shuffle of {m} rows: slots bit for bit == the CPU")
+        # placement against Python's Spark murmur3
+        k = ORACLE_ROWS
+        head = col_head(tbl[key], k)
+        ids = sh.partition_ids(Table([head], [key]), SHARDS).cpu().tolist()
+        vals = head.to_pylist()
+        check(ids == [spark_partition_py(
+            v.encode() if isinstance(v, str) else v, SHARDS) for v in vals],
+              f"{key} placement == Python Spark murmur3 on {k} rows")
+        return rec
+
+    table = Table(list(table.columns) + [Column(INT64, data=torch.arange(
+        n, device=table.columns[0].device))], list(table.names) + ["row"])
+    out["int32_key"] = case(table, "i32", n)
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 6)
+    chars, offsets, valid = text_strings(rng, n_str)
+    stbl = Table([Column.string(chars, offsets, valid, device=DEV),
+                  Column.fixed(INT64, np.arange(n_str), device=DEV)],
+                 ["s", "row"])
+    out["string_key"] = case(stbl, "s", n_str)
+    del stbl
+    torch.cuda.empty_cache()
+
+    # distributed groupby and join against one device
+    aggs = [("i64", "sum"), ("i64", "count"), ("f64", "min"),
+            ("f64", "max"), ("f32", "mean")]
+    gb = {}
+    got, gb["cold_s"] = wall(torch, lambda: dist.distributed_groupby(
+        table, mesh, ["i32"], aggs))
+    tracing.reset_counters("kernel.")
+    got, gb["warm_s"] = wall(torch, lambda: dist.distributed_groupby(
+        table, mesh, ["i32"], aggs))
+    gb["launches"] = kernel_launches(tracing)
+    one, gb["one_device_s"] = wall(torch, lambda: groupby(
+        table, ["i32"], aggs, device=DEV))
+    got = _sorted_by(torch, got, "i32")
+    check(got.num_rows == one.num_rows and all(
+        _same_values(torch, a, b)
+        for a, b in zip(got.columns[:5], one.columns[:5])),
+          "distributed groupby keys, sums, counts, min, max == one device")
+    gm, om = got.columns[5].data, one.columns[5].data
+    check(bool(((gm - om).abs() <= 1e-9 * om.abs().clamp(min=1.0)).all()),
+          "distributed groupby means within rel 1e-9 of one device")
+    gb["groups"] = got.num_rows
+    out["groupby"] = gb
+
+    m = min(n, 1 << 22)
+    fact = Table([col_head(table["i32"], m), col_head(table["row"], m)],
+                 ["k", "row"])
+    dk = torch.arange(100_000, device=fact.columns[0].device)
+    dim = Table([Column(INT32, data=dk.to(torch.int32)),
+                 Column(INT64, data=dk * 3)], ["k", "v"])
+    jn = {"fact_rows": m, "dim_rows": 100_000}
+    _, jn["cold_s"] = wall(torch, lambda: dist.distributed_join(
+        fact, dim, mesh, ["k"]))
+    tracing.reset_counters("kernel.")
+    got, jn["warm_s"] = wall(torch, lambda: dist.distributed_join(
+        fact, dim, mesh, ["k"]))
+    jn["launches"] = kernel_launches(tracing)
+    one, jn["one_device_s"] = wall(torch, lambda: inner_join(
+        fact, dim, ["k"], device=DEV))
+    check(_tables_equal(torch, _sorted_by(torch, got, "row"),
+                        _sorted_by(torch, one, "row")),
+          "distributed join == one device")
+    jn["rows_out"] = got.num_rows
+    out["join"] = jn
+
+    # engine q5 planned for the mesh against the one-shard plan
+    plan = q5_engine_plan(root, *Q5_DATES)
+    base = pe.execute(pe.optimize(plan), device=DEV)
+    config.shards = SHARDS
+    try:
+        opt = pe.optimize(plan, distribute=True)
+        eng = {"exchanges_planned": [e["kind"]
+                                     for e in plan_exchanges(opt)]}
+        _, eng["cold_s"] = wall(torch, lambda: pe.execute(opt, device=DEV))
+        stats = pe.new_stats()
+        tracing.reset_counters("kernel.")
+        res, eng["warm_s"] = wall(torch, lambda: pe.execute(
+            opt, stats=stats, device=DEV))
+        eng["launches"] = kernel_launches(tracing)
+    finally:
+        config.shards = None
+    eng["exchanges"] = stats["exchanges"]
+    check(stats["exchanges"] == len(eng["exchanges_planned"]) > 0,
+          "engine q5 ran every planned exchange")
+    check(q5_matches(engine_result(res), engine_result(base)),
+          "engine q5 with distribute=True == the one-shard plan")
+    out["engine_q5"] = eng
+    out["launches"] = {k: sum(r["launches"][k] for r in (
+        out["int32_key"], out["string_key"], gb, jn, eng))
+        for k in ALL_KERNELS}
+    return out
+
+
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2704,6 +3116,9 @@ def main() -> int:
     ap.add_argument("--ops-rows", type=int, default=1 << 24)
     ap.add_argument("--ops-string-rows", type=int, default=1 << 22)
     ap.add_argument("--nds-rows", type=int, default=1 << 24)
+    ap.add_argument("--orc-rows", type=int, default=1 << 22)
+    ap.add_argument("--exchange-rows", type=int, default=1 << 24)
+    ap.add_argument("--exchange-string-rows", type=int, default=1 << 22)
     args = ap.parse_args()
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
@@ -2790,6 +3205,15 @@ def main() -> int:
 
         nds = phase_nds(torch, root, pqk, tracing, args.nds_rows, args.seed)
         emit(nds)
+        torch.cuda.empty_cache()
+
+        orc = phase_orc(torch, root, tracing, args.orc_rows, args.seed)
+        emit(orc)
+        torch.cuda.empty_cache()
+
+        exchange = phase_exchange(torch, root, tracing, args.exchange_rows,
+                                  args.exchange_string_rows, args.seed)
+        emit(exchange)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2800,6 +3224,8 @@ def main() -> int:
     rows = [
         {"name": name, "route": "cuda", "source": pkg + "row_wire.cu",
          "replaces": jax_pkg + ref, "launches": stage["launches"][name],
+         "orc_launches": orc["launches"][name],
+         "exchange_launches": exchange["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
@@ -2814,6 +3240,8 @@ def main() -> int:
         "launches": q5["launches"]["plain_gather"],
         "engine_launches": engine["launches"]["plain_gather"],
         "nds_launches": nds["launches"]["plain_gather"],
+        "orc_launches": orc["launches"]["plain_gather"],
+        "exchange_launches": exchange["launches"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -2830,6 +3258,8 @@ def main() -> int:
             "launches": q5["launches"][name],
             "engine_launches": engine["launches"][name],
             "nds_launches": nds["launches"][name],
+            "orc_launches": orc["launches"][name],
+            "exchange_launches": exchange["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

@@ -15,13 +15,18 @@ sync; on a card each chunk's compressed pages are decoded on the device
 inside its segment (``config.device_decode`` pins a route).
 ``PlanCache`` lets repeat queries skip optimization.
 
-Not ported yet: the exchange layer and distributed planning, adaptive
-execution, the fused whole-stage program, the multi-tenant scheduler and
-sessions, ORC scans.
+``optimize(plan, distribute=True)`` places the Exchanges a mesh of
+``config.shards`` shards needs, and the executor runs them through the
+exchange layer (``parallel/``): hash shuffles with a halved-chunk and a
+spilled rung, and broadcasts.  Scans read Parquet and ORC.
+
+Not ported yet: adaptive execution, the fused whole-stage program, the
+multi-tenant scheduler and sessions.
 """
 
 from .plan import (  # noqa: F401
     Aggregate,
+    Exchange,
     Filter,
     Join,
     Limit,

@@ -245,9 +245,22 @@ def _stream_scan_of(agg: Aggregate) -> Optional[Scan]:
 # -- the walk --------------------------------------------------------------
 
 def _scan_table(scan: Scan, stats: dict, ctx: _ExecCtx) -> Table:
-    if scan.format == "orc":
-        raise NotImplementedError("ORC scans are not ported yet")
     cols = list(scan.columns) if scan.columns else None
+    if scan.format == "orc":
+        from ..io import ORCChunkedReader, read_orc
+        if scan.predicate is None:
+            return read_orc(scan.path, cols, device=ctx.device)
+        # stripe pruning by the predicate's statistics; the row Filter
+        # above keeps the exact semantics
+        from ..ops.selection import concat_tables
+        reader = ORCChunkedReader(scan.path, cols, tuple(scan.predicate),
+                                  device=ctx.device)
+        parts = list(reader)
+        stats["row_groups_read"] += len(parts)
+        stats["row_groups_pruned"] += reader.file.num_stripes - len(parts)
+        if not parts:
+            return reader.file.empty_table(cols, device=ctx.device)
+        return concat_tables(parts)
     if scan.predicate is None and scan.chunk_bytes is None:
         from ..io import read_parquet
         return read_parquet(scan.path, cols, device=ctx.device)
@@ -386,15 +399,214 @@ def _exec_limit(node: Limit, memo: dict, stats: dict,
     return slice_table(t, 0, min(node.n, t.num_rows))
 
 
+#: per-chunk row budget for the streamed hash exchange: bounds the
+#: device-resident working set of one shuffle dispatch
+_EXCHANGE_CHUNK_ROWS = 1 << 16
+
+
 def _exec_exchange(node: Exchange, memo: dict, stats: dict,
                    ctx: _ExecCtx) -> Table:
-    """Data movement as a plan node.  On one device both kinds are the
-    identity, as in the JAX package with one device; the mesh exchange
-    (hash shuffle, broadcast, spill ladder) is not ported yet.  Counted so
-    the executed count equals ``verify.plan_exchanges``."""
+    """Data movement as a plan node: replicate (broadcast) or re-place
+    (hash shuffle) the child's rows across the engine's mesh of
+    ``config.shards`` shards.  With one shard both are the identity, as in
+    the JAX package with one device.  The hash kind does not keep row
+    order: exchanges feed only order-insensitive consumers.
+
+    Resource exhaustion walks a degradation ladder, each rung counted and
+    logged (engine/recovery.py): full capacity -> halved chunks -> spilled
+    shuffle (parallel/spill.py, host-buffered passes) -> passthrough.  The
+    last rung is content-equivalent (the exchange returns the whole table
+    either way); transient failures retry under the policy first."""
     child = _exec(node.child, memo, stats, ctx)
+    # counted before any early-out so the executed count equals the static
+    # verify.plan_exchanges census
     stats["exchanges"] += 1
-    return child
+    if node.kind == "broadcast":
+        return _broadcast_exchange(node, child, ctx)
+    rp = ctx.recovery
+    try:
+        return rp.retry("exchange.dispatch",
+                        lambda: _hash_exchange(node, child, ctx))
+    except Exception as e:
+        if not rp.can_degrade(e):
+            raise
+        if rp.oom_retry_first("exchange.dispatch", e):
+            try:
+                return _hash_exchange(node, child, ctx)
+            except Exception as e2:
+                if not rp.can_degrade(e2):
+                    raise
+                e = e2
+        rp.degrade("exchange-halved", e, stats)
+    try:
+        return _hash_exchange(node, child, ctx,
+                              chunk_rows=_EXCHANGE_CHUNK_ROWS // 2)
+    except Exception as e:
+        if not rp.can_degrade(e):
+            raise
+        rp.degrade("exchange-spilled", e, stats)
+    try:
+        return _spilled_exchange(node, child, ctx)
+    except Exception as e:
+        if not rp.can_degrade(e):
+            raise
+        rp.degrade("exchange-passthrough", e, stats)
+        return child
+
+
+def _broadcast_exchange(node: Exchange, table: Table,
+                        ctx: _ExecCtx) -> Table:
+    from ..parallel.mesh import broadcast_table, default_shards, make_mesh
+    ns = default_shards()
+    wire = table_nbytes(table) * max(0, ns - 1)
+    metrics.count("engine.exchange.broadcasts")
+    metrics.count("engine.exchange.wire_bytes", wire)
+    qm = metrics.current()
+    if qm is not None:
+        qm.node_add(id(node), node_label(node), wire_bytes=wire)
+        # a replicate is balanced by construction; its cost is the copies
+        qm.node_set(id(node), node_label(node), skew=1.0,
+                    straggler_share=0.0, max_dev_rows=table.num_rows,
+                    dev_rows=[table.num_rows] * ns, replica_bytes=wire)
+    if metrics.enabled():
+        metrics.gauge_set("engine.exchange.replica_bytes", float(wire))
+    if ns <= 1:
+        return table
+    with _scope("engine.exchange.broadcast"):
+        return broadcast_table(table, make_mesh(ns, device=ctx.device))
+
+
+def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
+                   chunk_rows: int = _EXCHANGE_CHUNK_ROWS) -> Table:
+    """Streamed two-phase hash shuffle of ``table`` over the mesh.
+
+    Chunks of ``chunk_rows`` stream through ``shuffle_chunks_pipelined``
+    (dispatch-ahead keyed to the prefetch depth).  Two deliberate host
+    syncs an exchange, as ``verify.sync_budget`` charges: the counts
+    (global when there are several chunks, else inside the shuffle) and
+    one fetch of the live-slot count, the overflow and the per-(src, dest)
+    row matrix before the compaction.
+    """
+    from ..ops.row_conversion import fixed_width_layout
+    from ..ops.selection import concat_tables, gather_table, slice_table
+    from ..parallel import shuffle as sh
+    from ..parallel.mesh import default_shards, make_mesh, pad_to_multiple
+    ns = default_shards()
+    if ns <= 1:
+        return table  # placement over one shard is the identity
+    plan = None
+    keys = list(node.keys)
+    key_specs = None
+    if any(c.dtype.is_string for c in table.columns):
+        # strings cross in padded-bucket form, exploded once for every
+        # chunk; placement hashes the original bytes (Spark-exact)
+        from ..parallel.stringplane import explode_strings
+        table, plan = explode_strings(table)
+        key_specs = sh.key_specs_for(table, keys, plan)
+    mesh = make_mesh(ns, device=ctx.device)
+    rows = table.num_rows
+    nchunks = max(1, -(-rows // chunk_rows))  # 0 rows still run one pass
+    layout = fixed_width_layout(table.dtypes())
+    capacity = None
+    if nchunks > 1:
+        # one counts pass sizes one grid for the whole stream; a chunk's
+        # shard can straddle one whole-table shard boundary, so its
+        # per-(src, dest) count is bounded by two adjacent pair counts:
+        # size at twice the global max
+        padded, _ = pad_to_multiple(table, ns)
+        counts = sh.partition_counts(padded, mesh, keys, n_valid_rows=rows,
+                                     key_specs=key_specs)
+        metrics.host_sync(key=id(node), label="exchange-counts-sizing")
+        capacity = sh.cap_bucket(2 * int(counts.max()))
+
+    def chunk_stream():
+        for i in range(nchunks):
+            ctx.recovery.checkpoint()
+            lo = i * chunk_rows
+            t, n = pad_to_multiple(
+                slice_table(table, lo, min(rows - lo, chunk_rows)), ns)
+            yield t, torch.arange(t.num_rows, device=ctx.device) < n
+
+    with _scope("engine.exchange.hash"):
+        outs = list(sh.shuffle_chunks_pipelined(
+            chunk_stream(), mesh, keys, capacity=capacity,
+            depth=max(1, ctx.prefetch), key_specs=key_specs))
+    ok = torch.cat([o[1] for o in outs])
+    ovf = torch.stack([o[2] for o in outs]).sum()
+    # per-(src, dest) live rows: the received layout is [dest, src, slot]
+    mat = sum(o[1].reshape(ns, ns, -1).sum(dim=2).T for o in outs)
+    meta = torch.cat([torch.stack([ovf, ok.sum()]),
+                      mat.reshape(-1)]).cpu()
+    metrics.host_sync(key=id(node), label="exchange-compaction")
+    if int(meta[0]):
+        raise RuntimeError(
+            "hash exchange overflow despite counts-sized capacity")
+    n_live = int(meta[1])
+    rows_mat = meta[2:].reshape(ns, ns).numpy()
+    wire = sum(o[0].num_rows for o in outs) * layout.row_size
+    keep = torch.argsort((~ok).to(torch.uint8), stable=True)[:n_live]
+    result = gather_table(concat_tables([o[0] for o in outs]), keep)
+    metrics.count("engine.exchange.shuffles")
+    metrics.count("engine.exchange.wire_bytes", wire)
+    qm = metrics.current()
+    if qm is not None:
+        qm.node_add(id(node), node_label(node), chunks=nchunks,
+                    wire_bytes=wire)
+    if metrics.enabled():
+        st = sh.device_load_stats(rows_mat.sum(axis=0))
+        metrics.gauge_set("engine.exchange.skew", st["skew"])
+        metrics.gauge_set("engine.exchange.straggler_share",
+                          st["straggler_share"])
+        metrics.gauge_set("engine.exchange.max_dev_rows",
+                          st["max_dev_rows"])
+        for d, r in enumerate(st["dev_rows"]):
+            metrics.gauge_set(f"engine.exchange.dev{d}.rows", float(r))
+            metrics.observe("engine.exchange.dev_rows", r)
+        if qm is not None:
+            qm.node_set(id(node), node_label(node),
+                        skew=st["skew"],
+                        straggler_share=st["straggler_share"],
+                        max_dev_rows=st["max_dev_rows"],
+                        cap_rows=ok.shape[0] // ns,
+                        dev_rows=st["dev_rows"],
+                        rows_matrix=rows_mat.tolist())
+    if plan is not None:
+        from ..parallel.stringplane import reassemble_strings
+        result = reassemble_strings(result, plan)
+    return result
+
+
+def _spilled_exchange(node: Exchange, table: Table, ctx: _ExecCtx) -> Table:
+    """Degraded exchange through ``shuffle_table_spilled``: bounded device
+    passes, host-resident result (under ``config.spill_dir`` when set),
+    moved back to the device.  Placement matches the padded path; the
+    output order is pass-major, which order-insensitive consumers allow."""
+    from ..parallel import shuffle as sh
+    from ..parallel.mesh import default_shards, make_mesh
+    from ..parallel.spill import shuffle_table_spilled
+    from ..utils.config import config
+    ns = default_shards()
+    if ns <= 1 or table.num_rows == 0:
+        return table
+    plan = None
+    keys = list(node.keys)
+    key_specs = None
+    if any(c.dtype.is_string for c in table.columns):
+        from ..parallel.stringplane import explode_strings
+        table, plan = explode_strings(table)
+        key_specs = sh.key_specs_for(table, keys, plan)
+    # half the table's footprint as the pass budget: the degraded path runs
+    # because the full-capacity dispatch just ran out of memory
+    budget = max(1 << 20, table_nbytes(table) // 2)
+    metrics.count("engine.exchange.spilled_reroutes")
+    result = shuffle_table_spilled(table, make_mesh(ns, device=ctx.device),
+                                   keys, hbm_budget_bytes=budget,
+                                   spill_dir=config.spill_dir,
+                                   key_specs=key_specs).to(ctx.device)
+    if plan is not None:
+        from ..parallel.stringplane import reassemble_strings
+        result = reassemble_strings(result, plan)
+    return result
 
 
 def _exec(node: PlanNode, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:

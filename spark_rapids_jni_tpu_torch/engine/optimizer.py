@@ -20,9 +20,11 @@ rules, applied in a fixed order chosen so each enables the next:
 3. **Projection pruning**: required columns flow top-down; scans read only
    what some ancestor consumes (``Scan.columns``).
 
-Hand-placed Exchange nodes whose child is already placed as they would
-place it are eliminated.  The partitioning-aware exchange placement
-(``distribute=True``) needs the exchange layer and is not ported yet.
+With ``distribute=True`` a fourth rule places the exchanges a mesh of
+shards needs (``_plan_exchanges``): broadcast or shuffle joins by the
+build's row estimate, partial aggregation below a hash exchange, and none
+where the input is already placed.  Hand-placed Exchange nodes whose child
+is already placed as they would place it are eliminated.
 
 All rules build new nodes (plan nodes are frozen); the input plan is never
 mutated, so a cached original plan stays valid as a cache key.
@@ -32,9 +34,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .plan import (Aggregate, Exchange, Filter, Join, Limit, PlanNode,
-                   Project, Scan, Sort, TopK, expr_columns, partitioning,
-                   rebuild, topo_nodes)
+from .plan import (ORDER_SENSITIVE_AGGS, Aggregate, Exchange, Filter, Join,
+                   Limit, PlanNode, Project, Scan, Sort, TopK,
+                   co_partitioned, expr_columns, partitioning, rebuild,
+                   topo_nodes)
 
 #: comparisons a scan predicate hint can absorb (col vs literal)
 _RANGE_OPS = {">=", "<=", ">", "<", "=="}
@@ -51,10 +54,12 @@ class _Schema:
             return list(node.columns)
         key = (node.format, node.path)
         if key not in self._files:
-            if node.format != "parquet":
-                raise NotImplementedError("ORC scans are not ported yet")
-            from ..io import ParquetFile
-            self._files[key] = list(ParquetFile(node.path).names)
+            if node.format == "parquet":
+                from ..io import ParquetFile
+                self._files[key] = list(ParquetFile(node.path).names)
+            else:
+                from ..io import ORCFile
+                self._files[key] = list(ORCFile(node.path).column_names)
         return list(self._files[key])
 
 
@@ -404,6 +409,116 @@ def _estimate_rows(node: PlanNode, memo: dict) -> Optional[int]:
     return est
 
 
+# -- rule 4: partitioning-aware exchange placement ----------------------------
+
+#: join types whose RIGHT side may be replicated instead of shuffled: the
+#: output is left-row-driven, so per-shard replicas of the build side never
+#: duplicate result rows (right/full would emit their null-extended right
+#: rows once per shard)
+_BROADCAST_HOWS = ("inner", "left", "semi", "anti", "cross")
+
+
+def _plan_exchanges(node: PlanNode, pmemo: dict, est: dict,
+                    memo: dict, dec: list) -> PlanNode:
+    """Insert the minimal exchanges a distributed Join/Aggregate needs.
+
+    Bottom-up, so each decision sees the children's (possibly already
+    exchanged) partitioning:
+
+    - **Join**: nothing when the build side is broadcast or the sides are
+      already co-partitioned on the join keys (shuffle elimination by
+      construction).  Otherwise a build whose footer row estimate is at or
+      under ``config.broadcast_rows`` replicates
+      (``Exchange(kind="broadcast")``); else both sides hash-exchange onto
+      their join keys, skipping a side already placed correctly.
+    - **Aggregate** (grouped): nothing when the input is already placed by
+      a subset of the group keys.  Decomposable aggs split into a partial
+      BELOW the exchange and a combine above it, so only per-shard partial
+      rows cross; other aggs exchange the full input on the group keys.
+      Order-sensitive aggs (first/last/collect_list) never distribute: the
+      hash exchange does not keep row order, so their whole subtree stays
+      the original single stream.
+
+    The JAX package's profile-history warming (AQE rule 3) is not ported
+    (ROADMAP queue 1 item 3).
+    """
+    if id(node) in memo:
+        return memo[id(node)]
+    mark = len(dec)  # this subtree's ledger entries start here
+    kids = {f: _plan_exchanges(getattr(node, f), pmemo, est, memo, dec)
+            for f in ("child", "left", "right") if hasattr(node, f)}
+    out = rebuild(node, **{k: v for k, v in kids.items()
+                           if v is not getattr(node, k)})
+
+    from ..utils.config import config
+    if isinstance(out, Join):
+        lp = partitioning(out.left, pmemo)
+        rp = partitioning(out.right, pmemo)
+        if rp.kind == "broadcast" or (
+                out.how != "cross"
+                and co_partitioned(lp, rp, out.left_keys, out.right_keys)):
+            pass  # already co-located
+        else:
+            rows = _estimate_rows(out.right, est)
+            if out.how in _BROADCAST_HOWS and rows is not None \
+                    and rows <= config.broadcast_rows:
+                out = rebuild(out, right=Exchange(out.right,
+                                                  kind="broadcast"))
+                dec.append({"kind": "broadcast", "how": out.how,
+                            "est_rows": int(rows),
+                            "threshold": int(config.broadcast_rows)})
+            elif out.how != "cross":
+                left, right = out.left, out.right
+                if not (lp.kind == "hash"
+                        and tuple(lp.keys) == tuple(out.left_keys)):
+                    left = Exchange(left, out.left_keys, "hash")
+                    dec.append({"kind": "shuffle", "side": "left",
+                                "keys": list(out.left_keys),
+                                "est_rows": _estimate_rows(out.left, est),
+                                "build_est_rows": rows,
+                                "threshold": int(config.broadcast_rows)})
+                if not (rp.kind == "hash"
+                        and tuple(rp.keys) == tuple(out.right_keys)):
+                    right = Exchange(right, out.right_keys, "hash")
+                    dec.append({"kind": "shuffle", "side": "right",
+                                "keys": list(out.right_keys),
+                                "est_rows": rows,
+                                "threshold": int(config.broadcast_rows)})
+                out = rebuild(out, left=left, right=right)
+    elif isinstance(out, Aggregate):
+        from .executor import _STREAM_COMBINE
+        p = partitioning(out.child, pmemo)
+        if any(op in ORDER_SENSITIVE_AGGS for _, op in out.aggs):
+            # revert to the pre-pass subtree, ledger entries included: no
+            # planner-placed exchange may reorder rows below this aggregate
+            out = node
+            del dec[mark:]
+            dec.append({"kind": "order_sensitive_revert",
+                        "keys": list(node.keys),
+                        "aggs": sorted({op for _, op in node.aggs
+                                        if op in ORDER_SENSITIVE_AGGS})})
+        elif not out.keys:
+            pass  # ungrouped: one global group, no placement to satisfy
+        elif p.kind == "broadcast" or (p.kind == "hash"
+                                       and set(p.keys) <= set(out.keys)):
+            pass  # every group's rows already share a shard
+        elif all(op in _STREAM_COMBINE for _, op in out.aggs):
+            partial = Aggregate(out.child, out.keys, out.aggs, out.names)
+            combine = tuple((nm, _STREAM_COMBINE[op])
+                            for nm, (_c, op) in zip(out.names, out.aggs))
+            out = Aggregate(Exchange(partial, out.keys, "hash"),
+                            out.keys, combine, out.names)
+            dec.append({"kind": "partial_agg", "keys": list(out.keys),
+                        "est_rows": _estimate_rows(node, est)})
+        else:
+            out = rebuild(out, child=Exchange(out.child, out.keys, "hash"))
+            dec.append({"kind": "shuffle", "side": "aggregate",
+                        "keys": list(out.keys),
+                        "est_rows": _estimate_rows(node, est)})
+    memo[id(node)] = out
+    return out
+
+
 # -- shuffle elimination -----------------------------------------------------
 
 def _eliminate_exchanges(node: PlanNode, pmemo: dict, memo: dict,
@@ -490,21 +605,16 @@ def optimize(plan: PlanNode,
     that alters them raises ``PlanVerificationError`` instead of producing
     a silently wrong result.
 
-    ``distribute=True`` asks for the partitioning-aware exchange rules,
-    which need the exchange layer and raise ``NotImplementedError`` here.
-    Shuffle elimination
-    (``_eliminate_exchanges``) runs on plans that carry hand-placed
-    Exchange nodes.
+    ``distribute=True`` turns the partitioning-aware exchange placement on
+    (``_plan_exchanges``, then ``verify.check_partitioning``).  Shuffle
+    elimination (``_eliminate_exchanges``) also runs on plans that carry
+    hand-placed Exchange nodes.
 
     The optimized plan carries per-node ``_est_rows`` and a root
     ``_decisions`` ledger (see ``_stamp_evidence``) that EXPLAIN and the
     executor read.
     """
     from ..utils.config import config
-    if distribute:
-        raise NotImplementedError(
-            "distributed planning needs the exchange layer, which is not "
-            "ported yet")
     checker = None
     if config.verify:
         from .verify import RewriteChecker
@@ -520,7 +630,11 @@ def optimize(plan: PlanNode,
     plan = _push_scan_predicates(plan, {})
     if checker is not None:
         checker.check("push_scan_predicates", plan)
-    if any(isinstance(n, Exchange) for n in topo_nodes(plan)):
+    if distribute:
+        plan = _plan_exchanges(plan, {}, {}, {}, decisions)
+        if checker is not None:
+            checker.check("plan_exchanges", plan)
+    if distribute or any(isinstance(n, Exchange) for n in topo_nodes(plan)):
         plan = _eliminate_exchanges(plan, {}, {}, decisions)
         if checker is not None:
             checker.check("eliminate_exchanges", plan)
@@ -529,5 +643,8 @@ def optimize(plan: PlanNode,
     plan = _apply_pruning(plan, schema, req, {})
     if checker is not None:
         checker.check("prune_projections", plan)
-    _stamp_evidence(plan, decisions, dist=False)
+    if distribute and config.verify:
+        from .verify import check_partitioning
+        check_partitioning(plan)
+    _stamp_evidence(plan, decisions, distribute)
     return plan

@@ -15,22 +15,28 @@ their own sites through ``utils.errors.retry_call``):
    caller's) checked at chunk boundaries and polled by the prefetch
    producer.
 
+3. **Retry**: ``retry`` runs an exchange dispatch under
+   ``utils.errors.retry_call`` (transient failures only, bounded, backed
+   off).
+
 The JAX package's session scheduling (``session.gate``, the session memory
 budget and the neighbour-pressure retry) and its flight-recorder calls are
-not ported yet: a policy here has no session, so ``charge`` is a no-op and
-an out-of-memory error always degrades (no same-rung retry).
+not ported yet (ROADMAP queue 1 item 5): a policy here has no session, so
+``charge`` is a no-op and ``oom_retry_first`` always answers no, so an
+out-of-memory error (``torch.cuda.OutOfMemoryError``) steps the ladder
+down at once.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Callable, Optional
 
 from ..utils import metrics
 from ..utils.config import config
 from ..utils.errors import (CancelToken, QueryCancelledError,
                             QueryTimeoutError, classify,
-                            is_resource_exhausted)
+                            is_resource_exhausted, retry_call)
 
 __all__ = ["RecoveryPolicy", "CancelToken", "QueryCancelledError",
            "QueryTimeoutError", "query_cancel_token"]
@@ -45,6 +51,10 @@ class RecoveryPolicy:
         self.cancel = cancel
         self.degradations: list[dict] = []
 
+    def retry(self, site: str, fn: Callable):
+        """Run ``fn``, retrying transient failures (bounded, backed off)."""
+        return retry_call(fn, site, cancel=self.cancel)
+
     def checkpoint(self) -> None:
         """Chunk-boundary cancellation/deadline check."""
         if self.cancel is not None:
@@ -57,6 +67,13 @@ class RecoveryPolicy:
     def can_degrade(self, exc: BaseException) -> bool:
         """Only resource exhaustion walks the ladder."""
         return is_resource_exhausted(exc)
+
+    def oom_retry_first(self, site: str, exc: BaseException) -> bool:
+        """Should this out-of-memory error retry the same rung once before
+        degrading?  Only a query of a session still within its own budget
+        earns that (the pressure was a neighbour's); the port has no
+        sessions yet, so it always degrades at once."""
+        return False
 
     def degrade(self, step: str, exc: BaseException,
                 stats: Optional[dict] = None) -> None:

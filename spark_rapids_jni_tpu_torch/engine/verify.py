@@ -85,15 +85,6 @@ class PlanVerificationError(ValueError):
                    d.get("message", ""))
 
 
-def _parquet_footer(node: Scan):
-    """The scan's ``ParquetFile``; an ORC scan raises (not ported), which
-    the resolver reads as an unknown schema."""
-    if node.format != "parquet":
-        raise NotImplementedError("ORC scans are not ported yet")
-    from ..io import ParquetFile
-    return ParquetFile(node.path)
-
-
 class SchemaResolver:
     """Caches scan-file footer schemas as ordered ``{name: DType}``.
 
@@ -119,17 +110,23 @@ class SchemaResolver:
         key = (node.format, node.path)
         if key not in self._nulls:
             try:
-                pf = _parquet_footer(node)
-                out = {}
-                for c in pf.schema:
-                    never = pf.num_row_groups > 0
-                    for gi in range(pf.num_row_groups):
-                        st = pf.group_stats(gi, c.name)
-                        if st is None or st[2] is None or st[2] > 0:
-                            never = False
-                            break
-                    out[c.name] = NULL_NEVER if never else NULL_MAYBE
-                self._nulls[key] = out
+                if node.format == "parquet":
+                    from ..io import ParquetFile
+                    pf = ParquetFile(node.path)
+                    out = {}
+                    for c in pf.schema:
+                        never = pf.num_row_groups > 0
+                        for gi in range(pf.num_row_groups):
+                            st = pf.group_stats(gi, c.name)
+                            if st is None or st[2] is None or st[2] > 0:
+                                never = False
+                                break
+                        out[c.name] = NULL_NEVER if never else NULL_MAYBE
+                    self._nulls[key] = out
+                else:
+                    from ..io import ORCFile
+                    self._nulls[key] = {nm: NULL_MAYBE for nm, _dt
+                                        in ORCFile(node.path).schema}
             except Exception:
                 self._nulls[key] = None
         nl = self._nulls[key]
@@ -139,8 +136,13 @@ class SchemaResolver:
         key = (node.format, node.path)
         if key not in self._files:
             try:
-                self._files[key] = {c.name: c.dtype
-                                    for c in _parquet_footer(node).schema}
+                if node.format == "parquet":
+                    from ..io import ParquetFile
+                    self._files[key] = {c.name: c.dtype
+                                        for c in ParquetFile(node.path).schema}
+                else:
+                    from ..io import ORCFile
+                    self._files[key] = dict(ORCFile(node.path).schema)
             except Exception:
                 self._files[key] = None
         sc = self._files[key]

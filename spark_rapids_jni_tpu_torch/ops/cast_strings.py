@@ -72,12 +72,37 @@ _POW2_F64_NP = np.array(
     [0.0 if e < -1074 else (np.inf if e > 1023 else float(2.0 ** e))
      for e in range(-1100, 1101)])
 
-_TINY = float(np.finfo(np.float64).tiny)  # smallest normal double
-_X86_NAN_BITS = -(1 << 51)   # 0xFFF8000000000000, x86's default NaN
+# Values below the normal range are scaled by 2^256 (exact: a power of two)
+# so that every intermediate of a parse or of the shortest-digits test stays
+# a normal double.  The scaled powers 10^k * 2^256 and their exact residuals
+# are correctly rounded from Fractions; the search reads them from the upper
+# half of one table, index k + 350 + 701.
+_SCALE_EXP = 256
+_SMALL = 2.0 ** -800      # values below this take the scaled search
+
+
+def _scaled_pow10_tables():
+    vals, errs = [], []
+    for k in range(-350, 351):
+        exact = Fraction(10) ** k * 2 ** _SCALE_EXP
+        if k > 0:  # never read: only values below 2^-800 are scaled
+            vals.append(np.inf)
+            errs.append(0.0)
+            continue
+        t = float(exact)
+        vals.append(t)
+        errs.append(float(exact - Fraction(t)))
+    return np.array(vals), np.array(errs)
+
+
+_POW10S_F64_NP, _POW10S_ERR_NP = _scaled_pow10_tables()
 
 _TABLES = {"pow10_u64": _POW10_U64_NP, "umax_div": _UMAX_DIV_NP,
-           "pow10_f64": _POW10_F64_NP, "pow10_err": _POW10_F64_ERR_NP,
-           "pow2_f64": _POW2_F64_NP}
+           "pow10_f64": _POW10_F64_NP, "pow2_f64": _POW2_F64_NP,
+           "pow10s_f64": _POW10S_F64_NP,
+           "pow10_cat": np.concatenate([_POW10_F64_NP, _POW10S_F64_NP]),
+           "pow10_err_cat": np.concatenate([_POW10_F64_ERR_NP,
+                                            _POW10S_ERR_NP])}
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,13 +290,22 @@ def cast_to_float(col: Column, dtype: DType, ansi: bool = False) -> Column:
 
     # value = digits * 10^(exp + dropped_int - frac_kept)
     eff = (p["exp"] + p["dropped_int"] - p["frac_kept"]).clamp(-350, 350)
-    mag = i128.u64_to_f64(p["digits"]) * _take("pow10_f64", eff + 350)
-    # "0e999" is 0 x inf: NaN in both packages (Java reads 0.0).  Its bits
-    # are the NaN an x86 CPU makes (sign set), on every device, so the card
-    # agrees with the CPU and the JAX package bit for bit
-    bits = torch.where(torch.isnan(mag), _X86_NAN_BITS, mag.view(torch.int64))
+    digits = i128.u64_to_f64(p["digits"])
+    # Below the normal range 10^eff is subnormal or 0 in the table, so the
+    # scale goes in two steps that keep the product normal: 10^eff * 2^256,
+    # then 2^-256 (exact, or the one rounding into a subnormal).  Java reads
+    # these as parseDouble does; the JAX package flushes them to 0.
+    deep = eff <= -308
+    mag = torch.where(
+        deep,
+        digits * _take("pow10s_f64", eff + 350) * 2.0 ** -_SCALE_EXP,
+        digits * _take("pow10_f64", eff + 350))
+    # zero digits read 0 whatever the exponent ("0e999" is 0.0 in Java;
+    # 0 x inf would be NaN)
+    mag = torch.where(p["digits"] == 0, torch.zeros_like(mag), mag)
     # the sign as a bit flip, which negation is on every device
-    val = (bits ^ (p["neg"].to(torch.int64) << 63)).view(torch.float64)
+    val = (mag.view(torch.int64) ^ (p["neg"].to(torch.int64) << 63)) \
+        .view(torch.float64)
 
     # keywords (after an optional sign; a NaN's sign is ignored)
     first = _char_at(mat, start)
@@ -495,11 +529,6 @@ def cast_from_decimal(col: Column) -> Column:
     return from_padded_bytes(mat, lengths, col.validity)
 
 
-def _ftz(x: torch.Tensor) -> torch.Tensor:
-    """Subnormal doubles flushed to (signed) zero."""
-    return torch.where(x.abs() < _TINY, x * 0.0, x)
-
-
 def _float_bits(col: Column):
     """(float64 values, IEEE bits: int32 for FLOAT32, int64 for FLOAT64)."""
     if col.dtype.id == TypeId.FLOAT32:
@@ -535,50 +564,50 @@ def _shortest_digits(col: Column):
     neg = (bits < 0) & ~nanm   # the sign bit is the MSB of the pattern
     safe_a = torch.where(nanm | infm | zerom, torch.ones_like(a), a)
 
-    # The arithmetic flushes subnormal results to zero (``_ftz``), as XLA
-    # does on the JAX package's CPU backend, so both packages accept the
-    # same digits down to the smallest normal doubles.
+    # Rows below 2^-800 run the test scaled by 2^256 (``_SMALL``): their
+    # table powers, value and half-ulp are all multiplied by the same power
+    # of two, so the test's answer is unchanged and no intermediate is
+    # subnormal.  Larger rows take the unscaled table, as in the JAX
+    # package (which flushes subnormal intermediates and so prints digits
+    # that do not parse back below ~1e-268).
+    small = safe_a < _SMALL
+    tab_off = torch.where(small, 701, 0) + 350
+    a_s = torch.where(small, safe_a * 2.0 ** _SCALE_EXP, safe_a)
+
     def t10(e):
-        return _ftz(_take("pow10_f64", (e + 350).clamp(0, 700)))
+        return _take("pow10_cat", (e.clamp(-350, 350) + tab_off))
 
     def t10err(e):
-        return _ftz(_take("pow10_err", (e + 350).clamp(0, 700)))
+        return _take("pow10_err_cat", (e.clamp(-350, 350) + tab_off))
 
-    def mul(x, y):
-        return _ftz(x * y)
-
-    def add(x, y):
-        return _ftz(x + y)
-
-    def sub(x, y):
-        return _ftz(x - y)
+    def t10u(e):  # unscaled, for the mantissa estimate
+        return _take("pow10_f64", (e + 350).clamp(0, 700))
 
     # decimal exponent estimate + guarded corrections (log10 is inexact at
-    # boundaries; a zero table power must never drive a correction)
+    # boundaries)
     e10 = torch.floor(torch.log10(safe_a)).to(torch.int64)
     for _ in range(2):
         pe = t10(e10)
-        e10 = torch.where((pe > 0) & (safe_a < pe), e10 - 1, e10)
+        e10 = torch.where((pe > 0) & (a_s < pe), e10 - 1, e10)
     for _ in range(2):
         pe = t10(e10 + 1)
-        e10 = torch.where((pe > 0) & (safe_a >= pe), e10 + 1, e10)
+        e10 = torch.where((pe > 0) & (a_s >= pe), e10 + 1, e10)
 
     def pow10_mul(x, k):
         # x * 10^k with k possibly beyond double's exponent range
         k1 = k.clamp(-300, 300)
-        return mul(mul(x, t10(k1)), t10(k - k1))
+        return x * t10u(k1) * t10u(k - k1)
 
     split = float((1 << 27) + 1)
 
     def two_prod(x, y):
-        prod = mul(x, y)
-        xc, yc = mul(x, split), mul(y, split)
-        xh = sub(xc, sub(xc, x))
-        xl = sub(x, xh)
-        yh = sub(yc, sub(yc, y))
-        yl = sub(y, yh)
-        err = add(add(add(sub(mul(xh, yh), prod), mul(xh, yl)),
-                      mul(xl, yh)), mul(xl, yl))
+        prod = x * y
+        xc, yc = x * split, y * split
+        xh = xc - (xc - x)
+        xl = x - xh
+        yh = yc - (yc - y)
+        yl = y - yh
+        err = xh * yh - prod + xh * yl + xl * yh + xl * yl
         return prod, err
 
     def dd_delta(m, k, aa):
@@ -588,16 +617,17 @@ def _shortest_digits(col: Column):
         t = t10(k)
         p1, er1 = two_prod(mh, t)
         p2, er2 = two_prod(ml, t)
-        return add(add(sub(p1, aa), p2),
-                   add(add(er1, er2), mul(add(mh, ml), t10err(k))))
+        return p1 - aa + p2 + (er1 + er2 + (mh + ml) * t10err(k))
 
     if is32:
         be = ((bits >> 23) & 0xFF).to(torch.int64)
         half_ulp = _take("pow2_f64", (be - 151 + 1100).clamp(0, 2200))
     else:
-        be = (bits >> 52) & 0x7FF
+        # a subnormal's ulp is that of the smallest exponent (be = 1)
+        be = ((bits >> 52) & 0x7FF).clamp(min=1) + \
+            torch.where(small, _SCALE_EXP, 0)
         half_ulp = _take("pow2_f64", (be - 1076 + 1100).clamp(0, 2200))
-    margin = mul(_ftz(half_ulp), 0.99999)
+    margin = half_ulp * 0.99999
 
     best_p = torch.full((n,), maxp, dtype=torch.int64, device=dev)
     best_m = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -606,11 +636,9 @@ def _shortest_digits(col: Column):
     for p in range(1, maxp + 1):
         k = e10 - (p - 1)
         t = t10(k)
-        deep = t <= 0.0  # table underflow (|value| ~< 1e-305): best effort
         m0 = torch.round(pow10_mul(safe_a, -k)).to(torch.int64)
         # one Newton step in mantissa units absorbs pow10_mul's rounding
-        adj = torch.where(deep, torch.zeros_like(t), torch.round(
-            dd_delta(m0, k, safe_a) / torch.where(t > 0, t, 1.0)))
+        adj = torch.round(dd_delta(m0, k, a_s) / t)
         m1 = m0 - adj.to(torch.int64)
         # of the three candidates take the acceptable one with the SMALLEST
         # delta: Java prints the decimal nearest the value
@@ -625,10 +653,8 @@ def _shortest_digits(col: Column):
             kc = torch.where(bump, k + 1, k)
             lo_ok = mcb >= (10 ** (p - 1) if p > 1 else 1)
             in_range = lo_ok & (mcb < 10 ** p)
-            dabs = dd_delta(mcb, kc, safe_a).abs()
-            okd = dabs < margin
-            okr = pow10_mul(mcb.to(torch.float64), kc) == safe_a
-            ok = in_range & torch.where(deep, okr, okd)
+            dabs = dd_delta(mcb, kc, a_s).abs()
+            ok = in_range & (dabs < margin)
             better = ok & (dabs < sel_d)
             sel_m = torch.where(better, mcb, sel_m)
             sel_bump = torch.where(better, bump, sel_bump)
@@ -639,7 +665,7 @@ def _shortest_digits(col: Column):
         best_m = torch.where(hit, sel_m, best_m)
         best_e = torch.where(hit, torch.where(sel_bump, e10 + 1, e10), best_e)
         found = found | sel_ok
-    # nothing accepted (half-ulp ties, deep subnormal scales): max precision
+    # nothing accepted (half-ulp ties): max precision
     m17 = torch.round(pow10_mul(safe_a, -(e10 - (maxp - 1)))).to(torch.int64)
     bump = m17 >= 10 ** maxp
     best_m = torch.where(found, best_m, torch.where(bump, m17 // 10, m17))
@@ -664,9 +690,10 @@ def _literal_row(text: bytes, width: int, dev) -> torch.Tensor:
 def cast_from_float(col: Column) -> Column:
     """FLOAT32/64 -> STRING following Java Double/Float.toString: plain
     decimal in [1e-3, 1e7), otherwise ``d.dddE±x``; the digit count is the
-    shortest that round-trips (searched 1..17 / 1..9).  Half-ulp ties and
-    values below ~1e-305 may print one more digit than Java (never a wrong
-    value), as in the JAX package."""
+    shortest that round-trips (searched 1..17 / 1..9).  Half-ulp ties may
+    print one more digit than Java (never a wrong value), as in the JAX
+    package.  Below ~1e-268 the JAX package prints digits that do not parse
+    back; the port prints digits that do, down to the smallest subnormal."""
     m_, p_, e_, neg, nanm, infm, zerom = _shortest_digits(col)
     dev = m_.device
     W = 28

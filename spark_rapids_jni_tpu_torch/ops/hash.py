@@ -277,6 +277,46 @@ def _hash_table(table, seed: int, int_fn, long_fn, bytes_fn, device):
     return h
 
 
+def murmur3_hash_specs(cols, specs, seed: int = DEFAULT_SEED) -> torch.Tensor:
+    """Spark ``hash()`` (u32 in int64) over a column list where some
+    ORIGINAL columns appear exploded as (length, word...) groups
+    (``parallel/stringplane.py``).
+
+    ``specs``: per original column, ("fixed", idx) or
+    ("string", len_idx, (word_idx, ...)).  Exploded string groups hash their
+    UTF-8 bytes, rebuilt from the little-endian words: bit for bit the hash
+    of the original STRING column (Spark UTF8String murmur3), not of the
+    exploded form.  Null columns pass the running seed on, a string group's
+    validity riding on its length column.
+    """
+    first = cols[specs[0][1]]
+    n, dev = first.size, first.device
+    h = torch.full((n,), seed & M32, dtype=torch.int64, device=dev)
+    for spec in specs:
+        if spec[0] == "fixed":
+            col = cols[spec[1]]
+            kind = _lane_kind(col.dtype)
+            if kind == "bytes":
+                mat, lengths = to_padded_bytes(col)
+                nh = _murmur_bytes(mat, lengths, h)
+            elif kind == "int":
+                nh = _murmur_int(_int_lane_u32(col), h)
+            else:
+                nh = _murmur_long(_long_lane_u64(col), h)
+            valid = col.validity
+        else:
+            len_col = cols[spec[1]]
+            words = torch.stack([cols[i].data for i in spec[2]], dim=1)
+            mat = words.contiguous().view(torch.uint8).reshape(
+                n, 4 * len(spec[2]))
+            nh = _murmur_bytes(mat, len_col.data, h)
+            valid = len_col.validity
+        if valid is not None:
+            nh = torch.where(valid, nh, h)
+        h = nh
+    return h
+
+
 @traced("murmur3_hash")
 def murmur3_hash(table: Table | Column, seed: int = DEFAULT_SEED,
                  device=_device.DEFAULT) -> Column:

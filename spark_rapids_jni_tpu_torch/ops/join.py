@@ -499,3 +499,29 @@ def _assemble_outer(left, right, li, ri, on_left, on_right, suffixes,
         out_cols.append(gather_column(col, rsafe, indices_valid=right_valid))
         out_names.append(nm + (suffixes[1] if nm in lnames else ""))
     return Table(out_cols, out_names)
+
+
+@traced("sort_merge_join")
+def sort_merge_join(left: Table, right: Table, on_left, on_right=None,
+                    how: str = "inner", suffixes=("", "_r"),
+                    device=_device.DEFAULT) -> Table:
+    """SortMergeJoin surface: the exchange plans of BASELINE configs[3] name
+    this; physically the same sorted-probe expansion as the other joins.
+    ``suffixes`` name colliding right columns (semi/anti keep the left)."""
+    on_right = on_right or on_left
+    kw = {"suffixes": suffixes, "device": device}
+    if how == "inner":
+        return inner_join(left, right, on_left, on_right, **kw)
+    if how == "left":
+        return left_join(left, right, on_left, on_right, **kw)
+    if how == "right":
+        return right_join(left, right, on_left, on_right, **kw)
+    if how in ("full", "outer", "full_outer"):
+        return full_join(left, right, on_left, on_right, **kw)
+    if how == "cross":
+        return cross_join(left, right, **kw)
+    if how == "semi":
+        return left_semi_join(left, right, on_left, on_right, device=device)
+    if how == "anti":
+        return left_anti_join(left, right, on_left, on_right, device=device)
+    raise ValueError(f"unsupported join type {how!r}")

@@ -22,6 +22,9 @@ time of use.
 | ``metrics``         | ``True``  | query-scoped metrics (``utils/metrics.py``) |
 | ``verify``          | ``True``  | static plan verification in ``optimize`` |
 | ``device_decode``   | ``None``  | streamed scans decode pages on the device: ``None`` on a card target, ``True``/``False`` pin a route |
+| ``shards``          | ``None``  | shards of the engine's mesh: ``None`` is one a device of the target (1 on one card or on the CPU) |
+| ``broadcast_rows``  | ``100000``| distributed planning replicates a join build of at most this many estimated rows |
+| ``spill_dir``       | ``None``  | host directory of the spilled exchange's buffers (``None``: host memory) |
 | ``query_timeout_s`` | ``0.0``   | cooperative per-query deadline (0 = none) |
 | ``roofline_gbps``   | ``0.0``   | device bandwidth ceiling for explain's ``roofline_frac`` (0 = none) |
 """
@@ -45,6 +48,9 @@ class Config:
     metrics: bool = True
     verify: bool = True
     device_decode: Optional[bool] = None
+    shards: Optional[int] = None
+    broadcast_rows: int = 100_000
+    spill_dir: Optional[str] = None
     query_timeout_s: float = 0.0
     roofline_gbps: float = 0.0
 

@@ -69,6 +69,12 @@ class AdmissionRejectedError(EngineError):
     retryable = False
 
 
+class CodecUnavailableError(EngineError):
+    """A file's codec needs a library this host does not have (pyarrow's
+    ZSTD and SNAPPY compressors, ZSTD ORC streams): a property of the
+    host, so not retryable."""
+
+
 class QueryCancelledError(EngineError):
     kind = KIND_CANCELLED
     retryable = False
@@ -126,6 +132,7 @@ _WIRE_TYPES = {
     "QueryCancelledError": QueryCancelledError,
     "QueryTimeoutError": QueryTimeoutError,
     "BridgeTimeoutError": BridgeTimeoutError,
+    "CodecUnavailableError": CodecUnavailableError,
 }
 
 _KIND_FALLBACK = {

@@ -113,7 +113,19 @@ def test_from_float(width):
         vals = vals[(np.abs(vals) >= np.finfo(np.float32).tiny)
                     | (vals == 0) | ~np.isfinite(vals)]
     jc = JColumn.from_numpy(vals)
-    assert_same(jcs.cast_from_float(jc), pcs.cast_from_float(to_port(jc)))
+    jout, pout = jcs.cast_from_float(jc), pcs.cast_from_float(to_port(jc))
+    # below 2^-800 the port follows Java (digits that parse back to the
+    # same double, ROADMAP queue 3's kept deviation); the JAX package's
+    # flushed search may print others there.  Bit for bit everywhere else.
+    deep = (np.abs(vals) < 2.0 ** -800) & (vals != 0)
+    got = pout.to_pylist()
+    for i in np.flatnonzero(deep):
+        assert float(got[i]) == vals[i], (vals[i], got[i])
+    want = jout.to_pylist()
+    assert [want[i] for i in np.flatnonzero(~deep)] == \
+        [got[i] for i in np.flatnonzero(~deep)]
+    if not deep.any():
+        assert_same(jout, pout)
 
 
 def test_from_float_subnormal_prints_its_digits():

@@ -10,6 +10,7 @@ port with ``device="cpu"``.  Tolerance: none — offsets, chars, data bits
 and validity are compared bit for bit.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -83,10 +84,32 @@ def test_to_integer(strings, target):
                 pcs.cast_to_integer(to_port(strings), getattr(pdt, target)))
 
 
+def java_zero_rows(jc, jout):
+    """Rows where the JAX package reads NaN from a number (0 x inf, as in
+    "0e999"): Java's parseDouble reads them as a signed zero, and so does
+    the port (a kept deviation, ROADMAP queue 3)."""
+    strs = jc.to_pylist()
+    data = np.asarray(HostColumn.of(jout).data)
+    vals = (data.view(np.float64) if data.dtype == np.int64
+            else data.astype(np.float64))
+    return [i for i, s in enumerate(strs)
+            if s is not None and np.isnan(vals[i])
+            and "nan" not in s.lower()]
+
+
 @pytest.mark.parametrize("target", ["FLOAT32", "FLOAT64"])
 def test_to_float(strings, target):
-    assert_same(jcs.cast_to_float(strings, getattr(jdt, target)),
-                pcs.cast_to_float(to_port(strings), getattr(pdt, target)))
+    jout = jcs.cast_to_float(strings, getattr(jdt, target))
+    pout = pcs.cast_to_float(to_port(strings), getattr(pdt, target))
+    zero = java_zero_rows(strings, jout)
+    strs = strings.to_pylist()
+    got = pout.data.numpy()
+    for i in zero:  # Java's value, pinned to Python's float()
+        want = np.array(float(strs[i].strip()), got.dtype)
+        assert got[i].tobytes() == want.tobytes(), strs[i]
+    keep = np.setdiff1d(np.arange(len(strs)), zero)
+    assert_same(jout.gather(jnp.asarray(keep)),
+                pout.gather(torch.from_numpy(keep)))
 
 
 @pytest.mark.parametrize("scale", [0, -2, -3, 2])

@@ -118,8 +118,23 @@ def test_optimize_q5_matches_jax(warehouse):
 
 
 def test_distributed_planning_raises(warehouse):
-    with pytest.raises(NotImplementedError):
-        pe.optimize(to_port(q5_plan(warehouse[0])), distribute=True)
+    """Distributed planning is ported: q5 plans as the JAX package plans it,
+    and what raises now is the partitioning check on a plan whose join
+    sides are placed on different keys."""
+    from spark_rapids_jni_tpu_torch.engine.plan import Exchange, Join, Scan
+    from spark_rapids_jni_tpu_torch.engine.verify import check_partitioning
+    root = warehouse[0]
+    popt = pe.optimize(to_port(q5_plan(root)), distribute=True)
+    jopt = je.optimize(q5_plan(root), distribute=True)
+    assert popt.serialize() == jopt.serialize()
+    bad = Join(Exchange(Scan(root / "store_sales.parquet"),
+                        ("ss_store_sk",), "hash"),
+               Exchange(Scan(root / "date_dim.parquet"), ("d_date_sk",),
+                        "hash"),
+               ("ss_sold_date_sk",), ("d_date_sk",), "inner")
+    with pytest.raises(pe.PlanVerificationError,
+                       match="partitioning-mismatch"):
+        check_partitioning(bad)
 
 
 # -- execute -----------------------------------------------------------------
