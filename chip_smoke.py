@@ -3,13 +3,15 @@
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives a Spark stage end to end on the card, and scans
 NDS-shaped Parquet files on the card for q5-lite, hand-wired and as an
-engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, and
-the exchange layer on a mesh of 8 shards of the card.
+engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, the
+exchange layer on a mesh of 8 shards of the card, and adaptive execution
+with the fused partial -> exchange -> combine stage on the same mesh.
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
         [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
         [--exchange-rows 16777216] [--exchange-string-rows 4194304]
+        [--adaptive-rows 16777216]
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -47,13 +49,15 @@ Phases (any failed check raises, and the script exits non-zero):
             bool x no / sparse nulls).  Plan, decode and host-route times,
             link bytes, and a profile of one group's decode.
 7. decode_kernels  K3 plain_gather on its own (blk, 512) -> (blk, 128)
-            contract and on the page planes decode_table gives it (4 and
-            8 bytes, with nulls); W1 snappy_walk and W2 hybrid_decode on
-            every call decode_table makes on the fact file's first group
-            and on a copy-bearing file (literal-only, copy-bearing,
-            def-level and dictionary pages), then on their torn sets
-            (hybrid_torn_set, snappy_torn_set: damaged and wrapping
-            streams, which the CPU tests hold against the JAX package).
+            contract (beside its library call, one torch.gather of the
+            bytes at int64 offsets) and on the page planes decode_table
+            gives it (4 and 8 bytes, with nulls); W1 snappy_walk and W2
+            hybrid_decode on every call decode_table makes on the fact
+            file's first group and on a copy-bearing file (literal-only,
+            copy-bearing, def-level and dictionary pages), then on their
+            torn sets (hybrid_torn_set, snappy_torn_set: damaged and
+            wrapping streams, which the CPU tests hold against the JAX
+            package).
             Bit-exact against the plain versions, timed; W1/W2 report the
             tokens or runs walked, ns a step and the chain floor.
 8. q5       q5-lite over the three files for the year 2000 (footer pruning
@@ -122,6 +126,21 @@ Phases (any failed check raises, and the script exits non-zero):
             placement against Python's Spark murmur3 on 65,536 rows;
             distributed groupby and join against one device; engine q5
             planned with distribute=True against the one-shard plan.
+14. adaptive  8 shards, over a 2^24-row hot-key fact (half the rows on
+            one key; tests/test_adaptive.py::warehouse at full width) and a
+            400-row dimension written by the script's snappy writer, every
+            fact scan decoding on the card (K3/W1/W2): the hash-planned
+            join-aggregate with aqe off and on (the broadcast flip, the
+            hot-key split with post_skew < measured_skew, the combine to 7
+            rows); profile-warmed planning (run 2 plans the broadcast from
+            run 1's profile); the fused stage by a 100,000-value key, fused
+            at fuse_groups=16384 and re-planned at 4096, beside the
+            unfused run and one device, its pass alone paying one
+            synchronising call; aqe with fuse_exchange (the hot stage
+            routed to the host path and split, the balanced one fused, the
+            event timeline dumped); engine q5 fused against unfused.  Every
+            result against the one-shard answer and a numpy oracle;
+            deliberate host syncs against verify.sync_budget.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -134,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1720,6 +1740,20 @@ def phase_decode_kernels(torch, root, fact_path, seed: int,
             "plain_ms": cuda_ms(torch, lambda: pqk.plain_gather_plain(
                 u, vo, n_, size), iters=5, warmup=1),
             "bound_ms": r * v * (4 + 2 * size) / HBM_BYTES_PER_S * 1e3})
+    # the library call for K3's contract: one torch.gather of the bytes at
+    # int64 offsets (built outside the timed call), viewed as words
+    c0 = out["plain_gather"]["cases"][0]
+    flat = (voff.to(torch.int64)[:, None, None]
+            + nn.to(torch.int64)[:, :, None] * 4
+            + torch.arange(4, device=DEV)).reshape(blk, 512)
+
+    def library():
+        return torch.gather(unc, 1, flat).view(torch.int32)
+    lib = library()
+    check(err([lib], [pqk.plain_gather(unc, voff, nn, 4)]) == 0,
+          "K3's library call == K3 on its contract")
+    c0["library_ms"] = cuda_ms(torch, library)
+    del flat, lib
 
     for name, tag, a in walks:
         out[name]["cases"].append(walk_case(torch, pqk, name, tag, a, hop))
@@ -1833,9 +1867,12 @@ def count_syncs(torch, fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # "called a synchronizing CUDA operation" marks each sync; the mode's
+    # own once-a-process notice ("... prototype feature and does not yet
+    # detect all synchronizing operations") is not one
     sites = collections.Counter(
         f"{Path(w.filename).name}:{w.lineno}" for w in seen
-        if "synchroniz" in str(w.message))
+        if "called a synchronizing" in str(w.message))
     return sum(sites.values()), dict(sites)
 
 
@@ -2944,7 +2981,6 @@ def phase_exchange(torch, root, tracing, n: int, n_str: int,
     from spark_rapids_jni_tpu_torch.parallel import distributed as dist
     from spark_rapids_jni_tpu_torch.parallel import make_mesh
     from spark_rapids_jni_tpu_torch.parallel import shuffle as sh
-    from spark_rapids_jni_tpu_torch.utils.config import config
     out = {"phase": "exchange", "shards": SHARDS, "rows": n,
            "string_rows": n_str}
     mesh, cpu_mesh = make_mesh(SHARDS, device=DEV), \
@@ -3074,8 +3110,7 @@ def phase_exchange(torch, root, tracing, n: int, n_str: int,
     # engine q5 planned for the mesh against the one-shard plan
     plan = q5_engine_plan(root, *Q5_DATES)
     base = pe.execute(pe.optimize(plan), device=DEV)
-    config.shards = SHARDS
-    try:
+    with settings(shards=SHARDS):
         opt = pe.optimize(plan, distribute=True)
         eng = {"exchanges_planned": [e["kind"]
                                      for e in plan_exchanges(opt)]}
@@ -3085,8 +3120,6 @@ def phase_exchange(torch, root, tracing, n: int, n_str: int,
         res, eng["warm_s"] = wall(torch, lambda: pe.execute(
             opt, stats=stats, device=DEV))
         eng["launches"] = kernel_launches(tracing)
-    finally:
-        config.shards = None
     eng["exchanges"] = stats["exchanges"]
     check(stats["exchanges"] == len(eng["exchanges_planned"]) > 0,
           "engine q5 ran every planned exchange")
@@ -3096,6 +3129,364 @@ def phase_exchange(torch, root, tracing, n: int, n_str: int,
     out["launches"] = {k: sum(r["launches"][k] for r in (
         out["int32_key"], out["string_key"], gb, jn, eng))
         for k in ALL_KERNELS}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14. adaptive execution and the fused stage on 8 shards of the card
+# ---------------------------------------------------------------------------
+
+AQE_DIM_ROWS = 400          # tests/test_adaptive.py::warehouse's dimension
+AQE_HOT_KEY = 3             # half the fact sits on this key
+AQE_U_VALUES = 100_000      # the fused stage's group key
+AQE_AGGS = (("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max"))
+AQE_NAMES = ("s", "n", "lo", "hi")
+
+
+def adaptive_columns(n: int, seed: int):
+    """tests/test_adaptive.py::warehouse at full width: a fact whose INT64
+    key ``k`` holds half its rows on one key (the rest uniform over the
+    400 dimension keys; dictionary-encoded), an INT32 ``u`` uniform over
+    100,000 values and clustered (the file is written in ``u`` order, as a
+    fact sorted on a key is, so a shard holds about 12,500 of them), and
+    INT64 ``v = arange``; the dimension ``dk``, ``grp = dk % 7``."""
+    rng = np.random.default_rng(seed + 23)
+    k = rng.integers(0, AQE_DIM_ROWS, n)
+    k[: n // 2] = AQE_HOT_KEY
+    u = np.sort(rng.integers(0, AQE_U_VALUES, n)).astype(np.int32)
+    fact = [("k", "int64", k, None, True), ("u", "int32", u, None, False),
+            ("v", "int64", np.arange(n, dtype=np.int64), None, False)]
+    dk = np.arange(AQE_DIM_ROWS, dtype=np.int64)
+    dim = [("dk", "int64", dk, None, False),
+           ("grp", "int64", dk % 7, None, False)]
+    return fact, dim
+
+
+def group_oracle(keys: np.ndarray, v: np.ndarray) -> dict:
+    """key -> (sum, count, min, max) of ``v`` by numpy, exact in int64."""
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], v[order]
+    idx = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    return dict(zip(ks[idx].tolist(), zip(
+        np.add.reduceat(vs, idx).tolist(),
+        np.diff(np.r_[idx, len(ks)]).tolist(),
+        np.minimum.reduceat(vs, idx).tolist(),
+        np.maximum.reduceat(vs, idx).tolist())))
+
+
+def table_groups(table, key: str) -> dict:
+    """key -> the tuple of the other columns, from a result table."""
+    cols = [table[nm].to_pylist() for nm in table.names if nm != key]
+    return dict(zip(table[key].to_pylist(), zip(*cols)))
+
+
+class settings:
+    """Set fields of the port's ``config`` for a block; restore after."""
+
+    def __init__(self, **kw):
+        from spark_rapids_jni_tpu_torch.utils.config import config
+        self.config, self.kw = config, kw
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.config, k) for k in self.kw}
+        for k, v in self.kw.items():
+            setattr(self.config, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.config, k, v)
+
+
+def phase_adaptive(torch, root, tracing, n: int, seed: int) -> dict:
+    """Adaptive execution and the fused partial -> exchange -> combine
+    stage on 8 shards of the card, every fact scan decoding on the device
+    route (K3/W1/W2).  Each run is cold and warm, held against the
+    one-shard answer and a numpy oracle (INT64 sums exact):
+
+    1. ``Aggregate(Join(fact, dim, k=dk), grp, sum(v))`` planned with
+       every join hash (broadcast_rows=0), aqe off and on: on, the dim's
+       exchange flips to a broadcast and the partial aggregate's exchange
+       splits its hot destinations (post_skew < measured_skew) and
+       re-combines to 7 rows.
+    2. Profile-warmed planning: the plan with the dim filtered to dk < 50,
+       twice into one profile store with broadcast_rows=100: run 1 plans a
+       shuffle from the 400-row footer, run 2 the broadcast from run 1's
+       measured 50 rows (``adaptive:history_warmed``).
+    3. The fused stage ``Aggregate(fact, u, sum/count/min/max(v))``: fused
+       with fuse_groups=16384, re-planned on the host path at 4096 (prefix
+       overflow), beside the unfused distributed run and one device; the
+       fused pass alone pays one synchronising call.
+    4. aqe and fuse_exchange together: the probe routes the hot k stage to
+       the host path, where the split fires, and the u stage runs fused.
+    5. Engine q5-lite with fuse_exchange: its INT64-key stage runs fused,
+       equal to the unfused distributed run (sums within rel 1e-9).
+
+    Deliberate host syncs (``engine.host_sync``) equal
+    ``verify.sync_budget`` on every run of 3 and 4; run 4 records the
+    event timeline, dumped to a temporary directory."""
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.engine import adaptive
+    from spark_rapids_jni_tpu_torch.engine import segment as sg
+    from spark_rapids_jni_tpu_torch.engine.verify import sync_budget
+    from spark_rapids_jni_tpu_torch.parallel import make_mesh
+    from spark_rapids_jni_tpu_torch.utils import timeline
+    out = {"phase": "adaptive", "shards": SHARDS, "fact_rows": n}
+    t0 = time.perf_counter()
+    fact, dim = adaptive_columns(n, seed)
+    fpath, dpath = root / "aqe_fact.parquet", root / "aqe_dim.parquet"
+    write_parquet(fpath, fact, max(n // 16, 1), "snappy")
+    write_parquet(dpath, dim, 1 << 20, "snappy")
+    out["write_s"] = time.perf_counter() - t0
+    k, u, v = (c[2] for c in fact)
+    launches = {name: 0 for name in ALL_KERNELS}
+
+    def counter(name):
+        return tracing.counter_value(name)
+
+    def execute(opt, rec):
+        """One cold and one warm execute of ``opt``: times, kernel
+        launches, deliberate host syncs and wire bytes of the warm one."""
+        _, rec["cold_s"] = wall(torch, lambda: pe.execute(opt, device=DEV))
+        stats = pe.new_stats()
+        tracing.reset_counters("kernel.")
+        h0 = counter("engine.host_sync")
+        w0 = counter("engine.exchange.wire_bytes")
+        res, rec["warm_s"] = wall(torch, lambda: pe.execute(
+            opt, stats=stats, device=DEV))
+        rec["launches"] = kernel_launches(tracing)
+        for name, c in rec["launches"].items():
+            launches[name] += c
+        rec["host_syncs"] = counter("engine.host_sync") - h0
+        rec["wire_bytes"] = counter("engine.exchange.wire_bytes") - w0
+        rec["exchanges"] = stats["exchanges"]
+        rec["aqe_flips"], rec["aqe_splits"] = stats["aqe_flips"], \
+            stats["aqe_splits"]
+        return res
+
+    def join_plan(dk_below=None):
+        dims = pe.Scan(dpath)
+        if dk_below is not None:
+            dims = pe.Filter(dims, ("<", pe.col("dk"), pe.lit(dk_below)))
+        j = pe.Join(pe.Scan(fpath, chunk_bytes=64 << 20), dims, ("k",),
+                    ("dk",), "inner")
+        return pe.Aggregate(j, ("grp",), (("v", "sum"),), ("total",))
+
+    # 1. the broadcast flip and the hot-key split
+    want = {g: int(v[k % 7 == g].sum()) for g in range(7)}
+    one = table_groups(pe.execute(pe.optimize(join_plan()), device=DEV),
+                       "grp")
+    check({g: t[0] for g, t in one.items()} == want,
+          "join-aggregate on one shard == numpy")
+    join = {}
+    for label, kw in (("aqe_off", {"aqe": False}),
+                      ("aqe_on", {"aqe": True, "aqe_skew": 1.5,
+                                  "aqe_broadcast_rows": 1_000_000})):
+        rec = join[label] = {}
+        with settings(shards=SHARDS, broadcast_rows=0, **kw):
+            opt = pe.optimize(join_plan(), distribute=True)
+            res = execute(opt, rec)
+        check(table_groups(res, "grp") == one,
+              f"join-aggregate, {label}: == one shard and numpy (exact)")
+        rt = adaptive.runtime_entries(opt)
+        rec["ledger"] = [{k2: d[k2] for k2 in (
+            "kind", "triggered", "measured_rows", "measured_skew",
+            "post_skew", "hot_devices", "combined_rows") if k2 in d}
+            for d in rt]
+    on = join["aqe_on"]
+    check(join["aqe_off"]["aqe_flips"] == join["aqe_off"]["aqe_splits"]
+          == 0 and not join["aqe_off"]["ledger"],
+          "aqe off: no flip, no split, no runtime ledger entry")
+    (split,) = [d for d in on["ledger"]
+                if d["kind"] == "adaptive:skew_split" and d["triggered"]]
+    check(on["aqe_flips"] >= 1 and on["aqe_splits"] >= 1
+          and split["post_skew"] < split["measured_skew"]
+          and split["combined_rows"] == 7,
+          "aqe on: a flip and a split, post_skew < measured_skew, the "
+          "combine back to 7 rows")
+    out["join"] = join
+
+    # 2. profile-warmed planning
+    want50 = {g: int(v[(k % 7 == g) & (k < 50)].sum()) for g in range(7)}
+    warm = {}
+    with tempfile.TemporaryDirectory(prefix="aqe_profiles_") as pdir, \
+            settings(shards=SHARDS, aqe=True, metrics=True, profile_dir=pdir,
+                     broadcast_rows=100):
+        for label in ("run1", "run2"):
+            rec = warm[label] = {}
+            opt = pe.optimize(join_plan(50), distribute=True)
+            res, rec["wall_s"] = wall(torch, lambda: pe.execute(
+                opt, device=DEV))
+            rec["exchanges_planned"] = sorted(
+                e.kind for e in pe.plan.topo_nodes(opt)
+                if isinstance(e, pe.Exchange))
+            rec["result"] = {g: t[0] for g, t in
+                             table_groups(res, "grp").items()}
+            rec["warmed"] = [d for d in opt._decisions
+                             if d.get("kind") == "adaptive:history_warmed"]
+        warm["profiles"] = len(os.listdir(pdir))
+    (hw,) = warm["run2"]["warmed"]
+    check("broadcast" not in warm["run1"]["exchanges_planned"]
+          and not warm["run1"]["warmed"]
+          and "broadcast" in warm["run2"]["exchanges_planned"]
+          and (hw["est_before"], hw["est_rows"], hw["choice"],
+               hw["prior_kind"]) == (AQE_DIM_ROWS, 50, "broadcast",
+                                     "shuffle"),
+          "run 1 planned a shuffle from the footer, run 2 the broadcast "
+          "from run 1's measured 50 rows")
+    check(warm["run1"]["result"] == warm["run2"]["result"] == want50,
+          "both warmed runs == numpy (exact)")
+    for label in ("run1", "run2"):
+        del warm[label]["result"]
+    out["warmed"] = warm
+
+    # 3. the fused stage by u
+    u_want = group_oracle(u.astype(np.int64), v)
+    stage_plan = pe.Aggregate(pe.Scan(fpath, chunk_bytes=64 << 20), ("u",),
+                              AQE_AGGS, AQE_NAMES)
+    st = {"groups": len(u_want)}
+    ref, st["one_device_s"] = wall(torch, lambda: pe.execute(
+        pe.optimize(stage_plan), device=DEV))
+    check(table_groups(ref, "u") == u_want,
+          "u stage on one shard == numpy (exact)")
+    for label, kw in (("unfused", {"fuse_exchange": False}),
+                      ("fused", {"fuse_exchange": True,
+                                 "fuse_groups": 16384}),
+                      ("fused_4096", {"fuse_exchange": True,
+                                      "fuse_groups": 4096})):
+        rec = st[label] = {}
+        with settings(shards=SHARDS, **kw):
+            opt = pe.optimize(stage_plan, distribute=True)
+            rec["budget"] = [e["site"] for e in sync_budget(opt)]
+            d0 = counter("engine.fused_stage.dispatches")
+            o0 = counter("engine.fused_stage.overflow_fallbacks")
+            res = execute(opt, rec)
+            rec["fused_dispatches"] = \
+                counter("engine.fused_stage.dispatches") - d0
+            rec["overflow_fallbacks"] = \
+                counter("engine.fused_stage.overflow_fallbacks") - o0
+        check(table_groups(res, "u") == u_want,
+              f"u stage, {label}: == one shard and numpy (exact)")
+    check(st["fused"]["fused_dispatches"] == 2
+          and st["fused"]["overflow_fallbacks"] == 0,
+          "fuse_groups=16384: the stage ran fused, cold and warm")
+    check(st["fused_4096"]["fused_dispatches"] == 0
+          and st["fused_4096"]["overflow_fallbacks"] == 2,
+          "fuse_groups=4096: the prefix overflowed and the host path "
+          "re-planned, cold and warm")
+    for label in ("unfused", "fused"):
+        check(st[label]["host_syncs"] == len(st[label]["budget"]),
+              f"u stage, {label}: deliberate syncs == verify.sync_budget")
+    check(st["fused"]["budget"].count("groupby-compaction") == 1
+          and "exchange-compaction" not in st["fused"]["budget"]
+          and st["unfused"]["budget"].count("exchange-counts-sizing") == 1
+          and st["unfused"]["budget"].count("exchange-compaction") == 1,
+          "the fused exchange pays one sync, the host exchange two")
+    # the fused pass alone, over its materialized input
+    with settings(shards=SHARDS, fuse_exchange=True, fuse_groups=16384):
+        opt = pe.optimize(stage_plan, distribute=True)
+        stage = opt._fuse_stage
+        inp = pe.execute(stage.partial.child, device=DEV)
+        mesh = make_mesh(SHARDS, device=DEV)
+        st["pass_syncs"], st["pass_sync_sites"] = count_syncs(
+            torch, lambda: sg.run_fused_stage(stage, inp, mesh))
+        (res, info), st["pass_s"] = wall(
+            torch, lambda: sg.run_fused_stage(stage, inp, mesh))
+        for key in ("capacity", "row_size", "wire_bytes"):
+            st["pass_" + key] = info[key]
+        rows_mat = info["rows_matrix"]
+        st["pass_send_matrix_rows"] = int(rows_mat.sum())
+        st["pass_prefix"] = sg.fused_prefix(inp.num_rows // SHARDS)
+        del inp
+    check(st["pass_syncs"] == 1,
+          "the fused pass pays one synchronising call (the boundary "
+          f"fetch); it made {st['pass_syncs']}: {st['pass_sync_sites']}")
+    check(table_groups(res, "u") == u_want, "the fused pass == numpy")
+    out["stage"] = st
+    torch.cuda.empty_cache()
+
+    # 4. aqe + fuse_exchange: the probe routes the hot stage to the host
+    k_want = group_oracle(k, v)
+    mix = {}
+    with tempfile.TemporaryDirectory(prefix="aqe_trace_") as tdir, \
+            settings(shards=SHARDS, aqe=True, aqe_skew=1.1,
+                     fuse_exchange=True, fuse_groups=16384, timeline=True,
+                     timeline_cap=1 << 16):
+        timeline.reset()
+        for key, want_g in (("k", k_want), ("u", u_want)):
+            rec = mix[key] = {}
+            plan = pe.Aggregate(pe.Scan(fpath, chunk_bytes=64 << 20),
+                                (key,), AQE_AGGS, AQE_NAMES)
+            opt = pe.optimize(plan, distribute=True)
+            rec["budget"] = [e["site"] for e in sync_budget(opt)]
+            a0 = counter("engine.fused_stage.aqe_fallbacks")
+            res = execute(opt, rec)
+            rec["aqe_fallbacks"] = \
+                counter("engine.fused_stage.aqe_fallbacks") - a0
+            rt = adaptive.runtime_entries(opt)
+            rec["dispatch"] = [d["dispatch"] for d in rt
+                               if d["kind"] == "fused_stage"]
+            rec["probe_skew"] = [d["measured_skew"] for d in rt
+                                 if d["kind"] == "fused_stage"]
+            rec["split"] = [{f: d.get(f) for f in (
+                "measured_skew", "post_skew", "hot_devices")}
+                for d in rt if d["kind"] == "adaptive:skew_split"
+                and d["triggered"]]
+            check(table_groups(res, key) == want_g,
+                  f"aqe + fuse, {key} stage: == numpy (exact)")
+        path = timeline.dump(str(Path(tdir) / "adaptive_trace.json"))
+        evs = timeline.events_snapshot()
+        heads = {e["id"] for e in evs if e["ph"] == "f"}
+        mix["timeline"] = {
+            "events": len(evs), "bytes": os.path.getsize(path),
+            "flows": sum(1 for e in evs if e["ph"] == "s"
+                         and e["id"] in heads),
+            "dropped": timeline.dropped_events(),
+            "by_phase": {ph: sum(1 for e in evs if e["ph"] == ph)
+                         for ph in sorted({e["ph"] for e in evs})},
+            "fused_dispatch_spans": sum(
+                1 for e in evs if e["name"] == "engine.fused_stage.dispatch"),
+            "hash_exchange_spans": sum(
+                1 for e in evs if e["name"] == "engine.exchange.hash")}
+        timeline.reset()
+    check(mix["k"]["dispatch"] == ["host"] and mix["k"]["aqe_fallbacks"] == 2
+          and mix["k"]["split"],
+          "aqe + fuse: the hot k stage went to the host path and split")
+    check(mix["u"]["dispatch"] == ["fused"] and not mix["u"]["split"],
+          "aqe + fuse: the balanced u stage ran fused")
+    check(mix["u"]["host_syncs"] == len(mix["u"]["budget"]) == 2,
+          "aqe + fuse, u stage: syncs == verify.sync_budget (probe + fetch)")
+    check(mix["timeline"]["flows"] > 0 and mix["timeline"]["dropped"] == 0
+          and mix["timeline"]["fused_dispatch_spans"] > 0,
+          "the timeline recorded flows and the fused dispatch")
+    out["aqe_fused"] = mix
+
+    # 5. engine q5-lite with the fused stage against the unfused run
+    plan = q5_engine_plan(root, *Q5_DATES)
+    q5 = {}
+    with settings(shards=SHARDS):
+        base = engine_result(pe.execute(pe.optimize(plan, distribute=True),
+                                        device=DEV))
+    with settings(shards=SHARDS, fuse_exchange=True):
+        opt = pe.optimize(plan, distribute=True)
+        d0 = counter("engine.fused_stage.dispatches")
+        f0 = counter("engine.fused_stage.fallbacks")
+        res = execute(opt, q5)
+        q5["fused_dispatches"] = counter("engine.fused_stage.dispatches") - d0
+        q5["fallbacks"] = counter("engine.fused_stage.fallbacks") - f0
+        q5["fallback_reasons"] = [d.get("reason") for d in
+                                  adaptive.runtime_entries(opt)
+                                  if d["kind"] == "fused_stage"]
+    check(q5["fused_dispatches"] == 2,
+          "engine q5: its INT64-key stage ran fused, cold and warm")
+    check(q5_matches(engine_result(res), base),
+          "engine q5 fused == unfused (counts exact, sums rel 1e-9)")
+    out["q5"] = q5
+    out["launches"] = launches
+    check(all(launches[name] > 0 for name in DECODE_KERNELS),
+          "K3/W1/W2 launched in the phase's fact scans")
+    for p in (fpath, dpath):
+        p.unlink()
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3119,6 +3510,7 @@ def main() -> int:
     ap.add_argument("--orc-rows", type=int, default=1 << 22)
     ap.add_argument("--exchange-rows", type=int, default=1 << 24)
     ap.add_argument("--exchange-string-rows", type=int, default=1 << 22)
+    ap.add_argument("--adaptive-rows", type=int, default=1 << 24)
     args = ap.parse_args()
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
@@ -3214,6 +3606,11 @@ def main() -> int:
         exchange = phase_exchange(torch, root, tracing, args.exchange_rows,
                                   args.exchange_string_rows, args.seed)
         emit(exchange)
+        torch.cuda.empty_cache()
+
+        adaptive = phase_adaptive(torch, root, tracing, args.adaptive_rows,
+                                  args.seed)
+        emit(adaptive)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3226,6 +3623,7 @@ def main() -> int:
          "replaces": jax_pkg + ref, "launches": stage["launches"][name],
          "orc_launches": orc["launches"][name],
          "exchange_launches": exchange["launches"][name],
+         "adaptive_launches": adaptive["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
@@ -3242,12 +3640,13 @@ def main() -> int:
         "nds_launches": nds["launches"]["plain_gather"],
         "orc_launches": orc["launches"]["plain_gather"],
         "exchange_launches": exchange["launches"]["plain_gather"],
+        "adaptive_launches": adaptive["launches"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "library_note": "no single PyTorch call gathers bytes at per-slot "
-                        "offsets and assembles words",
+        "bound_by": "bytes", "library_ms": contract["library_ms"],
+        "library_call": "torch.gather(unc, 1, flat_offsets)"
+                        ".view(torch.int32), int64 offsets built outside",
         "shape": contract["shape"]})
     for name, ref in (("snappy_walk", "parquet_decode.py:130"),
                       ("hybrid_decode", "parquet_decode.py:247")):
@@ -3260,6 +3659,7 @@ def main() -> int:
             "nds_launches": nds["launches"][name],
             "orc_launches": orc["launches"][name],
             "exchange_launches": exchange["launches"][name],
+            "adaptive_launches": adaptive["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

@@ -19,9 +19,12 @@ inside its segment (``config.device_decode`` pins a route).
 ``config.shards`` shards needs, and the executor runs them through the
 exchange layer (``parallel/``): hash shuffles with a halved-chunk and a
 spilled rung, and broadcasts.  Scans read Parquet and ORC.
+``config.fuse_exchange`` runs a partial/final aggregate sandwich as one
+fused stage (``segment.FusedStage``), and ``config.aqe`` turns on adaptive
+execution (``adaptive``: the broadcast flip, the hot-key skew split and
+profile-warmed planning).
 
-Not ported yet: adaptive execution, the fused whole-stage program, the
-multi-tenant scheduler and sessions.
+Not ported yet: the multi-tenant scheduler and sessions.
 """
 
 from .plan import (  # noqa: F401
@@ -60,10 +63,14 @@ from .cache import (  # noqa: F401
 )
 from .explain import ExplainReport, explain_analyze  # noqa: F401
 from .segment import (  # noqa: F401
+    FUSED_STAGE_CACHE,
     SEGMENT_CACHE,
+    CompiledFusedStage,
     CompiledSegment,
+    FusedStage,
     Segment,
     SegmentCache,
     build_segment,
     build_stream_segment,
 )
+from . import adaptive  # noqa: F401

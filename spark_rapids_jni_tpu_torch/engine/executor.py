@@ -27,23 +27,31 @@ cannot take (``plan_device_group``'s reasons) keep the host decoder.
 pruned/read, chunk count, whether streaming engaged) and runs every reader
 and op on ``device`` (default ``"cuda"``).
 
-One device: an Exchange places rows across a mesh, which is the identity
-on one device (the JAX package's ``ndev <= 1`` branch); the multi-device
-exchange, the fused whole-stage program, adaptive execution and scheduled
-sessions are not ported yet, and ORC scans raise.
+Scans read Parquet and ORC.  An Exchange places rows across the engine's
+mesh of ``config.shards`` shards (the identity on one shard, as the JAX
+package's ``ndev <= 1`` branch): a hash shuffle or a broadcast.  With
+``config.fuse_exchange`` a partial/final aggregate sandwich runs as one
+fused stage (``segment.FusedStage``, ``_try_fused_stage``), and with
+``config.aqe`` the runtime rules of ``engine/adaptive.py`` run at the
+exchanges: the broadcast flip, the hot-key skew split with its
+post-exchange combine, and the counts probe that routes a hot fused stage
+to the host path.  Exchanges emit spans, flows and per-shard lanes on the
+event timeline (``config.timeline``).  Not ported: scheduled sessions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import device as _device
 from ..columnar import Column, Table
 from ..dtypes import TypeId, int64_values
-from ..utils import metrics
+from ..utils import metrics, timeline
 from ..utils.errors import CancelToken, classify
 from ..utils.memory import table_nbytes
 from .plan import (Aggregate, Exchange, Filter, Join, Limit, PlanNode,
@@ -64,10 +72,13 @@ def _join_fns():
             "cross": j.cross_join}
 
 
+@contextlib.contextmanager
 def _scope(name: str):
     """A ``torch.profiler`` range, so a trace attributes device time to the
-    plan node or segment that launched it."""
-    return torch.profiler.record_function(name)
+    plan node or segment that launched it, and a span of the same name on
+    the event timeline when that is on."""
+    with torch.profiler.record_function(name), timeline.span(name):
+        yield
 
 
 # -- filter expression evaluation ------------------------------------------
@@ -162,17 +173,21 @@ class _ExecCtx:
     (engine/segment.py) instead of interpreting node by node.
     ``prefetch``: chunked-scan pipeline depth (0 = serial).
     ``recovery``: the query's RecoveryPolicy, checked at every chunk
-    boundary.  ``root``: the plan being executed (the device-decode ledger
-    entry lands on it).  ``device``: where every reader and op runs.
+    boundary.  ``root``: the plan being executed (the device-decode and
+    adaptive ledger entries land on it).  ``device``: where every reader and
+    op runs.  ``stats``: the execution's stats dict (the AQE rules count
+    into it).
     """
 
     __slots__ = ("fuse", "prefetch", "nparents", "segments", "recovery",
-                 "root", "device")
+                 "root", "device", "stats")
 
     def __init__(self, root: PlanNode, fuse: bool, prefetch: int,
-                 recovery: RecoveryPolicy, device: torch.device):
+                 recovery: RecoveryPolicy, device: torch.device,
+                 stats: Optional[dict] = None):
         from .segment import parent_counts
         self.root = root
+        self.stats = new_stats() if stats is None else stats
         self.fuse = fuse
         self.prefetch = max(0, int(prefetch))
         self.nparents = parent_counts(root) if fuse else {}
@@ -267,12 +282,22 @@ def _scan_table(scan: Scan, stats: dict, ctx: _ExecCtx) -> Table:
     # pruning or chunking requested: go through the chunked reader so
     # footer-stats pruning applies, then materialize
     from ..io import ParquetChunkedReader
-    from ..ops.selection import concat_tables
+    from ..ops.selection import concat_tables, slice_table
     reader = ParquetChunkedReader(
         scan.path, pass_read_limit=scan.chunk_bytes or (64 << 20),
         columns=cols, predicate=scan.predicate,
         cancel=ctx.recovery.cancel, device=ctx.device)
-    parts = list(reader)
+    if _decode_on_device(ctx.device):
+        # the device route, as a streamed scan takes it: each row group's
+        # compressed pages cross the link and decode on the device (the
+        # K3/W1/W2 kernels on a card); groups the device decoder cannot
+        # take arrive host-decoded.  The JAX package materializes every
+        # scan through its host decoder.
+        parts = [slice_table(t, 0, nv) for t, nv in
+                 (_dev_item_decoded(item, ctx)
+                  for item in reader.iter_device(ctx.prefetch))]
+    else:
+        parts = list(reader)
     stats["row_groups_pruned"] += reader.groups_pruned
     stats["row_groups_read"] += reader.groups_read
     if not parts:
@@ -379,10 +404,129 @@ def _exec_aggregate(node: Aggregate, memo: dict, stats: dict,
             ctx.recovery.degrade("stream-interpreted", e, stats)
             return _exec_streamed(node, scan, memo, stats, ctx,
                                   force_interp=True)
+    from ..utils.config import config
+    if config.fuse_exchange:
+        out = _try_fused_stage(node, memo, stats, ctx)
+        if out is not None:
+            return out
     seg = ctx.segment_for(node)
     if seg is not None:
         return _exec_segment(seg, memo, stats, ctx, node)
     return _groupby(_exec(node.child, memo, stats, ctx), node, ctx)
+
+
+def _fused_fallback(ctx: _ExecCtx, ex: Exchange, reason: str) -> None:
+    """Count and ledger one give-way of the fused stage to the
+    host-orchestrated exchange (a runtime re-plan, never an error)."""
+    from . import adaptive
+    metrics.count("engine.fused_stage.fallbacks")
+    adaptive.record(ctx.root, {"kind": "fused_stage",
+                               "path": adaptive._path(ctx.root, ex),
+                               "dispatch": "host", "reason": reason})
+
+
+def _try_fused_stage(node: Aggregate, memo: dict, stats: dict,
+                     ctx: _ExecCtx) -> Optional[Table]:
+    """Whole-stage fusion (``segment.FusedStage``): run the ``partial-agg
+    -> hash Exchange -> final-agg`` sandwich rooted at ``node`` as one
+    device pass over every shard, with no host round trip between the
+    three plan nodes.  Returns the stage result, or None to fall through
+    to the host-orchestrated path: not a sandwich, shared interior nodes,
+    an ineligible schema, the AQE probe routing a hot stage to the host, or
+    prefix/capacity overflow.  Each give-way is counted
+    (``engine.fused_stage.fallbacks``) and ledgered; a failure inside the
+    pass raises."""
+    from ..parallel.mesh import ROW_AXIS, default_shards, make_mesh
+    from ..utils.config import config
+    from . import segment as sg
+
+    # prefer the optimizer's stamped hint; hand-built plans re-derive it
+    stage = getattr(node, "_fuse_stage", None) or sg.fused_sandwich(node)
+    if stage is None:
+        return None
+    ndev = default_shards()
+    if ndev <= 1:
+        return None  # placement over one shard is the identity
+    ex, partial = stage.exchange, stage.partial
+    npar = ctx.nparents if ctx.fuse else sg.parent_counts(ctx.root)
+    if npar.get(id(ex), 1) != 1 or npar.get(id(partial), 1) != 1:
+        _fused_fallback(ctx, ex, "shared")
+        return None  # shared interior nodes must materialize for others
+    inp = _exec(partial.child, memo, stats, ctx)
+    if not sg.fused_runtime_eligible(stage, inp):
+        _fused_fallback(ctx, ex, "schema")
+        return None
+    mesh = make_mesh(ndev, device=ctx.device)
+
+    prepped = None
+    if config.aqe and getattr(ex, "_aqe_split", False):
+        # AQE escape hatch: the skew split fires at the exchange boundary
+        # this fusion erases, so a counts probe picks the path.  Input-row
+        # skew at or under the split threshold dispatches the fused pass;
+        # anything hotter routes to the host path, where try_skew_split
+        # still fires.  Row skew bounds partial-group skew from above, so
+        # the probe only errs toward the adaptive path.
+        from ..parallel import shuffle as sh
+        from . import adaptive
+        probed, n = sg.fused_pad(inp.select(stage.sel_names()), ndev)
+        counts = sh.partition_counts(probed, mesh, list(stage.combine.keys),
+                                     n_valid_rows=n)
+        prepped = (probed, n)  # reused by the dispatch
+        metrics.host_sync(key=id(ex), label="exchange-counts-sizing")
+        probe_skew = sh.device_load_stats(counts.sum(axis=0))["skew"]
+        fused = probe_skew <= float(config.aqe_skew)
+        adaptive.record_fused_dispatch(ctx.root, ex, probe_skew,
+                                       float(config.aqe_skew),
+                                       "fused" if fused else "host")
+        if not fused:
+            metrics.count("engine.fused_stage.fallbacks")
+            metrics.count("engine.fused_stage.aqe_fallbacks")
+            return None
+
+    with _scope("engine.fused_stage"):
+        res = sg.run_fused_stage(stage, inp, mesh, ROW_AXIS,
+                                 prepped=prepped)
+    if res is None:
+        _fused_fallback(ctx, ex, "overflow")
+        return None  # the static prefix or capacity overflowed
+    out, info = res
+    rows_mat = info["rows_matrix"]
+    # the lowered Exchange still counts: the executed-exchange census sees
+    # the same events whether the exchange ran in the pass or on the host
+    stats["exchanges"] += 1
+    stats["nodes"] += 2  # the bypassed Exchange + partial Aggregate
+    wire = int(info["wire_bytes"])
+    metrics.count("engine.exchange.shuffles")
+    metrics.count("engine.exchange.wire_bytes", wire)
+    qm = metrics.current()
+    if qm is not None:
+        qm.node_add(id(ex), node_label(ex), chunks=1, wire_bytes=wire)
+    if metrics.enabled():
+        from ..parallel import shuffle as sh
+        # per-shard attribution from the device-side send matrix that rode
+        # the one fetch: no added sync, and the wire matrix sums to the
+        # engine.exchange.wire_bytes increment above (every slot crosses)
+        st = sh.device_load_stats(rows_mat.sum(axis=0))
+        metrics.gauge_set("engine.exchange.skew", st["skew"])
+        metrics.gauge_set("engine.exchange.straggler_share",
+                          st["straggler_share"])
+        metrics.gauge_set("engine.exchange.max_dev_rows",
+                          st["max_dev_rows"])
+        for d, r in enumerate(st["dev_rows"]):
+            metrics.gauge_set(f"engine.exchange.dev{d}.rows", float(r))
+            metrics.observe("engine.exchange.dev_rows", r)
+        if qm is not None:
+            qm.node_set(id(ex), node_label(ex),
+                        skew=st["skew"],
+                        straggler_share=st["straggler_share"],
+                        max_dev_rows=st["max_dev_rows"],
+                        cap_rows=info["ndev"] * info["capacity"],
+                        dev_rows=st["dev_rows"],
+                        rows_matrix=rows_mat.tolist(),
+                        wire_matrix=info["wire_matrix"].tolist(),
+                        in_program=True)
+            qm.node_set(id(node), node_label(node), in_program=True)
+    return out
 
 
 def _exec_sort(node: Sort, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
@@ -423,6 +567,18 @@ def _exec_exchange(node: Exchange, memo: dict, stats: dict,
     stats["exchanges"] += 1
     if node.kind == "broadcast":
         return _broadcast_exchange(node, child, ctx)
+    if getattr(node, "_aqe_flip", False):
+        from ..utils.config import config
+        if config.aqe:
+            # AQE rule 1 (engine/adaptive.py): the build side is already
+            # materialized, so its true row count is known before the
+            # shuffle runs: flip the planned hash exchange to a broadcast
+            # when it lands under the runtime threshold.  The Exchange node
+            # stays the same object (census, spans and ledger paths are
+            # keyed on it); only the physical op changes.
+            from . import adaptive
+            if adaptive.try_broadcast_flip(node, child, ctx.root, stats):
+                return _broadcast_exchange(node, child, ctx)
     rp = ctx.recovery
     try:
         return rp.retry("exchange.dispatch",
@@ -483,9 +639,17 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
     Chunks of ``chunk_rows`` stream through ``shuffle_chunks_pipelined``
     (dispatch-ahead keyed to the prefetch depth).  Two deliberate host
     syncs an exchange, as ``verify.sync_budget`` charges: the counts
-    (global when there are several chunks, else inside the shuffle) and
-    one fetch of the live-slot count, the overflow and the per-(src, dest)
-    row matrix before the compaction.
+    (global when there are several chunks or when the AQE skew rule needs
+    the whole matrix, else inside the shuffle) and one fetch of the
+    live-slot count, the overflow and the per-(src, dest) row matrices
+    before the compaction.
+
+    With ``config.aqe`` and the ``_aqe_split`` stamp, the counts decide the
+    hot-key split (``adaptive.try_skew_split``): hot destinations' rows are
+    re-dealt round-robin, the capacity comes from the post-split
+    projection, the measured post-split skew is folded into the ledger
+    entry, and a self-composable consumer gets the post-exchange
+    partial-combine.
     """
     from ..ops.row_conversion import fixed_width_layout
     from ..ops.selection import concat_tables, gather_table, slice_table
@@ -507,17 +671,40 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
     rows = table.num_rows
     nchunks = max(1, -(-rows // chunk_rows))  # 0 rows still run one pass
     layout = fixed_width_layout(table.dtypes())
-    capacity = None
-    if nchunks > 1:
-        # one counts pass sizes one grid for the whole stream; a chunk's
-        # shard can straddle one whole-table shard boundary, so its
-        # per-(src, dest) count is bounded by two adjacent pair counts:
-        # size at twice the global max
+    from ..utils.config import config
+    aqe_split = bool(config.aqe) and getattr(node, "_aqe_split", False)
+    split = split_entry = None
+    combine = False
+    capacity = counts = None
+    if nchunks > 1 or aqe_split:
+        # one counts pass sizes one grid for the whole stream (the AQE skew
+        # rule needs the whole matrix up front, so it hoists this pass for
+        # one chunk too: same sync, same label); a chunk's shard can
+        # straddle one whole-table shard boundary, so its per-(src, dest)
+        # count is bounded by two adjacent pair counts: size at twice the
+        # global max
         padded, _ = pad_to_multiple(table, ns)
         counts = sh.partition_counts(padded, mesh, keys, n_valid_rows=rows,
                                      key_specs=key_specs)
         metrics.host_sync(key=id(node), label="exchange-counts-sizing")
-        capacity = sh.cap_bucket(2 * int(counts.max()))
+    if aqe_split and counts is not None:
+        from . import adaptive
+        split, cap_need, split_entry, combine = adaptive.try_skew_split(
+            node, counts, ns, ctx.root, ctx.stats)
+    if counts is not None:
+        if split is not None:
+            # the projected post-split per-(src, dest) maximum; several
+            # chunks pay the same straddle bound (two shard pieces, each
+            # dealing its own hot share: at most one more row per ceil)
+            need = 2 * cap_need + 2 if nchunks > 1 else cap_need
+        else:
+            need = 2 * int(counts.max()) if nchunks > 1 \
+                else int(counts.max())
+        # no (src, dest) cell of a chunk exceeds the rows of one of the
+        # chunk's shards, however hot the key: a tighter bound than the
+        # straddle bound wherever the table is many chunks long (the JAX
+        # package sizes every chunk's grid from the straddle bound alone)
+        capacity = sh.cap_bucket(min(need, -(-min(rows, chunk_rows) // ns)))
 
     def chunk_stream():
         for i in range(nchunks):
@@ -527,25 +714,54 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
                 slice_table(table, lo, min(rows - lo, chunk_rows)), ns)
             yield t, torch.arange(t.num_rows, device=ctx.device) < n
 
+    tl = timeline.enabled()
+    fbase = timeline.new_flow_base() if tl else 0
+    outs = []
     with _scope("engine.exchange.hash"):
-        outs = list(sh.shuffle_chunks_pipelined(
-            chunk_stream(), mesh, keys, capacity=capacity,
-            depth=max(1, ctx.prefetch), key_specs=key_specs))
+        for ci, item in enumerate(sh.shuffle_chunks_pipelined(
+                chunk_stream(), mesh, keys, capacity=capacity,
+                depth=max(1, ctx.prefetch), key_specs=key_specs,
+                split=split)):
+            if tl:
+                # flow tails at dispatch, one a (chunk, destination); the
+                # heads land on the shard lanes at receipt
+                for d in range(ns):
+                    timeline.flow_start("engine.exchange.chunk",
+                                        fbase + ci * ns + d, {"chunk": ci})
+            outs.append(item)
     ok = torch.cat([o[1] for o in outs])
     ovf = torch.stack([o[2] for o in outs]).sum()
-    # per-(src, dest) live rows: the received layout is [dest, src, slot]
-    mat = sum(o[1].reshape(ns, ns, -1).sum(dim=2).T for o in outs)
+    # per-chunk (src, dest) live rows: the received layout is
+    # [dest, src, slot]; all of it rides the one compaction fetch
+    mats = torch.stack([o[1].reshape(ns, ns, -1).sum(dim=2).T
+                        for o in outs])
+    t_c0 = time.perf_counter()
     meta = torch.cat([torch.stack([ovf, ok.sum()]),
-                      mat.reshape(-1)]).cpu()
+                      mats.reshape(-1)]).cpu()
     metrics.host_sync(key=id(node), label="exchange-compaction")
     if int(meta[0]):
         raise RuntimeError(
             "hash exchange overflow despite counts-sized capacity")
     n_live = int(meta[1])
-    rows_mat = meta[2:].reshape(ns, ns).numpy()
+    chunk_mats = meta[2:].reshape(len(outs), ns, ns).numpy()
+    rows_mat = chunk_mats.sum(axis=0)
     wire = sum(o[0].num_rows for o in outs) * layout.row_size
     keep = torch.argsort((~ok).to(torch.uint8), stable=True)[:n_live]
     result = gather_table(concat_tables([o[0] for o in outs]), keep)
+    if tl:
+        dur = time.perf_counter() - t_c0
+        dev_cum = np.zeros(ns, np.int64)
+        for ci, cm in enumerate(chunk_mats):
+            chunk_dev = cm.sum(axis=0)
+            dev_cum += chunk_dev
+            for d in range(ns):
+                timeline.complete("engine.exchange.recv", t_c0, dur,
+                                  {"chunk": ci, "rows": int(chunk_dev[d])},
+                                  dev=d)
+                timeline.flow_finish("engine.exchange.chunk",
+                                     fbase + ci * ns + d, dev=d)
+                timeline.counter("engine.exchange.dev_rows",
+                                 int(dev_cum[d]), dev=d)
     metrics.count("engine.exchange.shuffles")
     metrics.count("engine.exchange.wire_bytes", wire)
     qm = metrics.current()
@@ -570,9 +786,22 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
                         cap_rows=ok.shape[0] // ns,
                         dev_rows=st["dev_rows"],
                         rows_matrix=rows_mat.tolist())
+        if split_entry is not None and split is not None:
+            # the attribution matrix measured the post-split placement:
+            # fold the proof the split worked into its ledger entry
+            from . import adaptive
+            adaptive.update(split_entry, post_skew=st["skew"],
+                            post_straggler_share=st["straggler_share"])
     if plan is not None:
         from ..parallel.stringplane import reassemble_strings
         result = reassemble_strings(result, plan)
+    if split is not None and combine:
+        # AQE rule 2, merge half: the split scattered each hot key's rows
+        # across shards, so re-combine per key over the merged output
+        from . import adaptive
+        result, did = adaptive.apply_precombine(node, result)
+        if did:
+            adaptive.update(split_entry, combined_rows=int(result.num_rows))
     return result
 
 
@@ -659,18 +888,6 @@ def _get_builds(joins: tuple, build_tables: tuple, ctx: _ExecCtx) -> tuple:
                         lambda j=j, bt=bt: prepare_build(
                             bt, list(j.right_keys), device=ctx.device))
         for j, bt in zip(joins, build_tables))
-
-
-def _ledger_record(root: PlanNode, entry: dict) -> dict:
-    """Append one runtime entry to the root's decision ledger; returns the
-    live dict so the caller can fold in what it measures later."""
-    entry = dict(entry, runtime=True)
-    dec = getattr(root, "_decisions", None)
-    if dec is None:
-        dec = []
-        object.__setattr__(root, "_decisions", dec)
-    dec.append(entry)
-    return entry
 
 
 def _exec_streamed(agg: Aggregate, scan: Scan, memo: dict,
@@ -782,7 +999,8 @@ def _exec_streamed(agg: Aggregate, scan: Scan, memo: dict,
                 dd = {"device_chunks": 0, "host_chunks": 0, "rows": 0,
                       "link_bytes": 0, "uncompressed_bytes": 0,
                       "reasons": {}}
-                dd_entry = _ledger_record(
+                from . import adaptive
+                dd_entry = adaptive.record(
                     ctx.root, {"kind": "scan:device_decode",
                                "node": node_label(scan)})
             for item in _chain_one(first, it) if first is not None else ():
@@ -1152,10 +1370,30 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
                    fuse=config.fuse if fused is None else bool(fused),
                    prefetch=config.prefetch if prefetch is None
                    else int(prefetch),
-                   recovery=RecoveryPolicy(cancel=cancel), device=dev)
+                   recovery=RecoveryPolicy(cancel=cancel), device=dev,
+                   stats=stats)
+    if config.aqe or config.fuse_exchange:
+        # a cached optimized plan is re-executed object-identical: strip
+        # the previous run's runtime ledger entries before this run
+        # appends its own
+        from . import adaptive
+        adaptive.reset(plan)
     # one QueryMetrics per top-level execute (nested executes attribute
     # into the enclosing query); config.metrics off skips it entirely
     with metrics.maybe_query(f"execute:{node_label(plan)}") as qm:
+        if config.profile_dir:
+            # the profile store keys cross-run diffs by plan fingerprint;
+            # stamp whichever query covers this execute (the one just
+            # opened, or a caller's); the first plan wins.  The source
+            # fingerprint rides along so profile.history can match runs of
+            # the same source plan when AQE warming changed the optimized
+            # shape.
+            cq = qm if qm is not None else metrics.current()
+            if cq is not None and not cq.fingerprint:
+                cq.fingerprint = plan.fingerprint()
+                sfp = getattr(plan, "_source_fingerprint", "")
+                if sfp and not cq.source_fingerprint:
+                    cq.source_fingerprint = sfp
         try:
             out = _exec(plan, {}, stats, ctx)
         except BaseException as e:

@@ -136,26 +136,78 @@ def _annotate(span: Optional[dict], ceiling: Optional[float] = None,
             bits.append(f"link_bytes={link}")
             if unc:
                 bits.append(f"link_ratio={link / unc:.3f}")
+    if span.get("in_program"):
+        # the node ran inside a fused stage's device pass: its exchange
+        # paid no host round trip of its own
+        bits.append("in_program=yes")
+    if span.get("skew") is not None:
+        # per-shard exchange attribution: destination-load balance
+        bits.append(f"skew={span['skew']:.2f}")
+        if span.get("straggler_share") is not None:
+            bits.append(f"straggler={span['straggler_share']:.2f}")
+        if span.get("max_dev_rows") is not None:
+            bits.append(f"max_dev_rows={span['max_dev_rows']}")
     return "[" + " ".join(bits) + "]"
 
 
 def _decision_line(d: dict, actuals: dict) -> str:
     """One footer line for one optimizer-ledger entry, scored against the
-    actual rows observed at the decision's node (when it executed)."""
+    actual rows observed at the decision's node (when it executed).
+
+    Runtime (``adaptive:*``) entries render their trigger verdict and the
+    measured value that fired (or declined) them: a flip shows the true
+    build rows against the threshold and hash->broadcast; a skew split
+    shows measured_skew -> post_skew, the proof the re-deal worked; a
+    history-warmed entry shows est_before -> est_rows and the choice the
+    prior run's actuals bought; a fused-stage entry shows where the stage
+    was dispatched and why."""
     bits = [d.get("kind", "?")]
     path = d.get("path")
     if path:
         bits.append(f"path={path}")
-    for k in ("exchange", "inner", "n", "keys"):
+    if "triggered" in d:
+        bits.append("triggered=yes" if d.get("triggered") else "triggered=no")
+    for k in ("side", "how", "exchange", "inner", "n", "keys", "aggs",
+              "dispatch", "reason"):
         v = d.get(k)
         if v not in (None, [], ()):
             bits.append(f"{k}={','.join(map(str, v))}"
                         if isinstance(v, (list, tuple)) else f"{k}={v}")
+    if d.get("before") is not None and d.get("after") is not None:
+        bits.append(f"{d['before']}->{d['after']}")
+    if "measured_rows" in d:
+        bits.append(f"measured_rows={d['measured_rows']}")
+    if "measured_skew" in d:
+        bits.append(f"measured_skew={d['measured_skew']:.2f}")
+    if d.get("post_skew") is not None:
+        bits.append(f"post_skew={d['post_skew']:.2f}")
+    if d.get("hot_devices"):
+        bits.append("hot_devices=" + ",".join(map(str, d["hot_devices"])))
+    if d.get("combine"):
+        bits.append("combine=yes")
+    if d.get("combined_rows") is not None:
+        bits.append(f"combined_rows={d['combined_rows']}")
+    if "est_before" in d:
+        bits.append(f"est_before={d['est_before']}")
+    if "est_rows" in d:
+        e = d["est_rows"]
+        bits.append(f"est_rows={'?' if e is None else e}")
     if d.get("choice"):
         bits.append(f"choice={d['choice']}")
+    if d.get("prior_kind"):
+        bits.append(f"prior_kind={d['prior_kind']}")
+    if d.get("runs") is not None:
+        bits.append(f"runs={d['runs']}")
+    if "threshold" in d:
+        bits.append(f"threshold={d['threshold']}")
+    if d.get("verify_rejected"):
+        bits.append("verify_rejected=yes")
     act = actuals.get(path) if path else None
     if act is not None:
         bits.append(f"actual_rows={act}")
+        qe = metrics.q_error(d.get("est_rows"), act)
+        if qe is not None:
+            bits.append(f"q_error={qe:.2f}")
     return " ".join(bits)
 
 
@@ -202,12 +254,14 @@ def explain_analyze(plan: PlanNode, stats: Optional[dict] = None,
                     fused: Optional[bool] = None,
                     prefetch: Optional[int] = None,
                     result_cache: bool = False,
+                    distribute: bool = False,
                     device=_device.DEFAULT) -> ExplainReport:
     """Optimize + execute ``plan`` on ``device`` and report per-node
     metrics.
 
     ``fused``/``prefetch`` pass through to ``execute`` (so both executor
-    modes can be profiled on the same plan).  With ``config.metrics`` off
+    modes can be profiled on the same plan), ``distribute`` to
+    ``optimize``.  With ``config.metrics`` off
     the plan still runs and the tree still renders, but node annotations
     and the summary are empty.
 
@@ -222,7 +276,7 @@ def explain_analyze(plan: PlanNode, stats: Optional[dict] = None,
     from .executor import execute, new_stats
     from .optimizer import optimize
 
-    opt = optimize(plan)
+    opt = optimize(plan, distribute=distribute)
     if stats is None:
         stats = new_stats()
     qm = None

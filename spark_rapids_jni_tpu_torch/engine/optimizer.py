@@ -419,7 +419,7 @@ _BROADCAST_HOWS = ("inner", "left", "semi", "anti", "cross")
 
 
 def _plan_exchanges(node: PlanNode, pmemo: dict, est: dict,
-                    memo: dict, dec: list) -> PlanNode:
+                    memo: dict, dec: list, warm=None) -> PlanNode:
     """Insert the minimal exchanges a distributed Join/Aggregate needs.
 
     Bottom-up, so each decision sees the children's (possibly already
@@ -439,13 +439,17 @@ def _plan_exchanges(node: PlanNode, pmemo: dict, est: dict,
       hash exchange does not keep row order, so their whole subtree stays
       the original single stream.
 
-    The JAX package's profile-history warming (AQE rule 3) is not ported
-    (ROADMAP queue 1 item 3).
+    ``warm`` is the AQE profile-history queue (adaptive.history_overrides):
+    each placement-needing Join pops the prior run's measured build actual
+    and plans from it instead of the footer estimate; joins are visited in
+    the same postorder every run of a source fingerprint, so the queue
+    aligns run 2's joins with run 1's recorded placements.
     """
     if id(node) in memo:
         return memo[id(node)]
     mark = len(dec)  # this subtree's ledger entries start here
-    kids = {f: _plan_exchanges(getattr(node, f), pmemo, est, memo, dec)
+    kids = {f: _plan_exchanges(getattr(node, f), pmemo, est, memo, dec,
+                               warm)
             for f in ("child", "left", "right") if hasattr(node, f)}
     out = rebuild(node, **{k: v for k, v in kids.items()
                            if v is not getattr(node, k)})
@@ -460,6 +464,22 @@ def _plan_exchanges(node: PlanNode, pmemo: dict, est: dict,
             pass  # already co-located
         else:
             rows = _estimate_rows(out.right, est)
+            warmed = None
+            if warm is not None:
+                from . import adaptive
+                hint = adaptive.next_build_actual(warm)
+                if hint is not None and hint.get("actual_rows") is not None:
+                    # AQE rule 3 (engine/adaptive.py): the prior run of
+                    # this source fingerprint measured this build side, so
+                    # plan from its actual instead of the footer estimate
+                    warmed = {"kind": "adaptive:history_warmed",
+                              "est_before": rows,
+                              "est_rows": int(hint["actual_rows"]),
+                              "prior_kind": hint.get("prior_kind"),
+                              "runs": warm.get("runs", 1),
+                              "threshold": int(config.broadcast_rows),
+                              "choice": "none"}
+                    rows = int(hint["actual_rows"])
             if out.how in _BROADCAST_HOWS and rows is not None \
                     and rows <= config.broadcast_rows:
                 out = rebuild(out, right=Exchange(out.right,
@@ -467,6 +487,8 @@ def _plan_exchanges(node: PlanNode, pmemo: dict, est: dict,
                 dec.append({"kind": "broadcast", "how": out.how,
                             "est_rows": int(rows),
                             "threshold": int(config.broadcast_rows)})
+                if warmed is not None:
+                    warmed["choice"] = "broadcast"
             elif out.how != "cross":
                 left, right = out.left, out.right
                 if not (lp.kind == "hash"
@@ -485,6 +507,10 @@ def _plan_exchanges(node: PlanNode, pmemo: dict, est: dict,
                                 "est_rows": rows,
                                 "threshold": int(config.broadcast_rows)})
                 out = rebuild(out, left=left, right=right)
+                if warmed is not None:
+                    warmed["choice"] = "shuffle"
+            if warmed is not None:
+                dec.append(warmed)
     elif isinstance(out, Aggregate):
         from .executor import _STREAM_COMBINE
         p = partitioning(out.child, pmemo)
@@ -611,14 +637,25 @@ def optimize(plan: PlanNode,
     hand-placed Exchange nodes.
 
     The optimized plan carries per-node ``_est_rows`` and a root
-    ``_decisions`` ledger (see ``_stamp_evidence``) that EXPLAIN and the
-    executor read.
+    ``_decisions`` ledger (see ``_stamp_evidence``) that EXPLAIN, the
+    executor and the profile store read.  With ``config.aqe`` a distributed
+    plan's build estimates are warmed from the profile store's history of
+    the same source plan (``adaptive.history_overrides``) and the runtime
+    rules' eligibility is stamped (``adaptive.stamp_eligibility``); with
+    ``config.fuse_exchange`` every partial/final sandwich carries its
+    ``FusedStage`` (``_fuse_stage``).  Stamps are plain attributes, so
+    fingerprints stay byte-identical.
     """
     from ..utils.config import config
     checker = None
     if config.verify:
         from .verify import RewriteChecker
         checker = RewriteChecker(plan)
+    # the SOURCE (pre-rewrite) fingerprint keys profile history across
+    # runs: warming exists to change the optimized shape, so the optimized
+    # fingerprint cannot be the cross-run key.  Only paid when the store
+    # is on.
+    src_fp = plan.fingerprint() if config.profile_dir else None
     schema = _Schema()
     decisions: list = []
     plan = _fuse_topk(plan, {}, decisions)
@@ -631,7 +668,11 @@ def optimize(plan: PlanNode,
     if checker is not None:
         checker.check("push_scan_predicates", plan)
     if distribute:
-        plan = _plan_exchanges(plan, {}, {}, {}, decisions)
+        warm = None
+        if config.aqe and src_fp:
+            from . import adaptive
+            warm = adaptive.history_overrides(src_fp)
+        plan = _plan_exchanges(plan, {}, {}, {}, decisions, warm)
         if checker is not None:
             checker.check("plan_exchanges", plan)
     if distribute or any(isinstance(n, Exchange) for n in topo_nodes(plan)):
@@ -647,4 +688,19 @@ def optimize(plan: PlanNode,
         from .verify import check_partitioning
         check_partitioning(plan)
     _stamp_evidence(plan, decisions, distribute)
+    if src_fp is not None:
+        object.__setattr__(plan, "_source_fingerprint", src_fp)
+    if distribute:
+        # the runtime rules' eligibility stamps go on last: any later
+        # structural pass would rebuild the nodes and drop them
+        from . import adaptive
+        adaptive.stamp_eligibility(plan)
+    if config.fuse_exchange:
+        # whole-stage fusion hint: the executor dispatches the
+        # planner-blessed FusedStage instead of re-deriving it
+        from . import segment as sg
+        for n in topo_nodes(plan):
+            st = sg.fused_sandwich(n)
+            if st is not None:
+                object.__setattr__(n, "_fuse_stage", st)
     return plan

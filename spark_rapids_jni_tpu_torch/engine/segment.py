@@ -25,8 +25,13 @@ A compiled segment here is an eager Python callable over torch ops (no
 tracing compiler, no CUDA graph).  ``CompiledSegment.traces`` and the
 ``engine.segment.compile`` / ``engine.segment.replay`` counters tick where
 the JAX package's do: the first call of a cache entry is its "compile", the
-later calls replay it.  The whole-stage ``FusedStage`` (the exchange inside
-the program) is not ported yet.
+later calls replay it.
+
+The whole-stage ``FusedStage`` (``config.fuse_exchange``) lowers the
+optimizer's ``partial-agg -> hash Exchange -> final-agg`` sandwich into one
+device pass over every shard of the mesh: partial groupby, Spark placement,
+plane pack, the (src, dst) grid transpose and the combine groupby, with no
+host round trip between them and one deliberate sync at the boundary.
 """
 
 from __future__ import annotations
@@ -37,10 +42,13 @@ import time
 from collections import OrderedDict
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..columnar import Column, Table
-from ..utils import metrics
+from ..dtypes import INT32
+from ..parallel.mesh import ROW_AXIS
+from ..utils import metrics, timeline
 from ..utils.config import config
 from .plan import (Aggregate, Filter, Join, PlanNode, Project, expr_columns,
                    topo_nodes)
@@ -90,6 +98,9 @@ class Segment:
         self.agg = agg              # optional Aggregate root
         self.input = input_node     # breaker output the segment consumes
         self._fp: Optional[str] = None
+
+    def nodes(self) -> tuple:
+        return self.chain + ((self.agg,) if self.agg is not None else ())
 
     def joins(self) -> tuple:
         """Join nodes in the chain, execution order."""
@@ -627,3 +638,439 @@ def combine_partials(partials: list, compiled: CompiledSegment) -> Table:
     kval = tuple(spec[3] for spec in out_keys)
     return _compact_padded(compiled.key_dtypes, kdat, kval, out_aggs,
                            ngroups, list(agg.keys) + list(agg.names))
+
+
+# -- whole-stage fusion: the exchange inside the pass -----------------------
+#
+# The segments above stop at pipeline breakers, and Exchange is the breaker
+# that costs the most: the host orchestrates a two-phase shuffle (counts
+# sync + compaction sync) between the partial and final aggregates of a
+# distributed group-by.  ``FusedStage`` runs the optimizer's ``partial-agg
+# -> hash Exchange -> final-agg`` sandwich as one device pass over every
+# shard: partial groupby, murmur3 placement, bucket pack, the grid
+# transpose, and the combine groupby, with no host round trip between the
+# three plan nodes.  Every size is static (a per-shard group prefix and a
+# capacity of twice the uniform share), overflow is counted on the device,
+# and the whole stage pays one deliberate host sync: the boundary fetch.
+# The host-orchestrated path stays the fallback (ineligible schema, shared
+# interior nodes, the AQE probe's routing, overflow), as in the JAX package.
+
+#: partial-side ops a fused stage supports: each has a merge op
+#: (executor._STREAM_COMBINE keys)
+_FUSED_PARTIAL_OPS = frozenset({"sum", "count", "count_all", "min", "max"})
+#: merge-side ops (the _STREAM_COMBINE value set)
+_FUSED_COMBINE_OPS = frozenset({"sum", "min", "max"})
+
+
+class FusedStage:
+    """One distributed stage, ``Aggregate(final) -> Exchange(hash) ->
+    Aggregate(partial)``, run as a single device pass."""
+
+    __slots__ = ("combine", "exchange", "partial", "_fp")
+
+    def __init__(self, combine: Aggregate, exchange, partial: Aggregate):
+        self.combine = combine
+        self.exchange = exchange
+        self.partial = partial
+        self._fp: Optional[str] = None
+
+    def sel_names(self) -> list:
+        """Input columns the stage consumes: group keys then agg inputs."""
+        out = list(self.combine.keys)
+        for c, _ in self.partial.aggs:
+            if c is not None and c not in out:
+                out.append(c)
+        return out
+
+    def fingerprint(self) -> str:
+        if self._fp is None:
+            sig = ("fused-stage", tuple(self.combine.keys),
+                   tuple(self.partial.aggs), tuple(self.partial.names),
+                   tuple(self.combine.aggs), tuple(self.combine.names),
+                   tuple(self.exchange.keys))
+            self._fp = hashlib.sha256(repr(sig).encode()).hexdigest()
+        return self._fp
+
+
+def fused_sandwich(node) -> Optional[FusedStage]:
+    """Detect the partial/final sandwich rooted at ``node`` (the same
+    structural test as ``verify.decision_census``) plus op eligibility.
+    Returns None when ``node`` cannot head a fused stage."""
+    from .plan import Exchange
+    if not isinstance(node, Aggregate):
+        return None
+    ex = node.child
+    if not (isinstance(ex, Exchange) and ex.kind == "hash"):
+        return None
+    p = ex.child
+    if not (isinstance(p, Aggregate) and p.keys
+            and tuple(p.keys) == tuple(node.keys)
+            and tuple(p.names) == tuple(node.names)):
+        return None
+    if not set(ex.keys) <= set(node.keys):
+        return None  # the exchange must co-locate whole groups
+    if len(node.aggs) != len(p.aggs):
+        return None
+    if any(op not in _FUSED_PARTIAL_OPS for _, op in p.aggs):
+        return None
+    if any(op not in _FUSED_COMBINE_OPS for _, op in node.aggs):
+        return None
+    return FusedStage(node, ex, p)
+
+
+def _fused_col_ok(dt) -> bool:
+    """Dtype gate shared by the static (verify) and runtime checks: stage
+    columns cross the exchange as word planes, one value per row, so they
+    must be 1-D fixed-width (no strings, nested or decimal columns)."""
+    return (dt.is_fixed_width and not dt.is_string and not dt.is_nested
+            and not dt.is_decimal)
+
+
+def fused_static_eligible(stage: FusedStage, schema=None) -> bool:
+    """Schema-level eligibility from a name -> DType mapping (the
+    verifier's resolved view).  Unknown columns assume eligible: the
+    runtime check over the actual table has the final veto."""
+    if schema is None:
+        return True
+    for nm in stage.sel_names():
+        dt = schema.get(nm)
+        if dt is not None and not _fused_col_ok(dt):
+            return False
+    return True
+
+
+def fused_runtime_eligible(stage: FusedStage, table: Table) -> bool:
+    """The actual input schema's veto (mirrors ``runtime_eligible``)."""
+    try:
+        for nm in stage.sel_names():
+            c = table.column(nm)
+            if not _fused_col_ok(c.dtype) or c.data is None \
+                    or c.data.ndim != 1:
+                return False
+    except (KeyError, ValueError):
+        return False
+    return True
+
+
+def fused_prefix(n_local: int) -> int:
+    """Static per-shard live-group budget of the fused stage.
+
+    The partial groupby packs each shard's live groups to the front of
+    that shard's slots, so everything downstream (placement, plane pack,
+    the grid, the combine) only needs a static prefix sized for the groups
+    a shard can plausibly hold: ``config.fuse_groups``, bucketed and
+    clamped by the shard's rows.  A shard that aggregates more groups than
+    the budget counts into the same device-side overflow as a full
+    exchange bucket, and the executor re-plans on the host path."""
+    from ..parallel.shuffle import cap_bucket
+    if n_local <= 0:
+        return 1
+    return min(n_local, cap_bucket(max(1, int(config.fuse_groups))))
+
+
+def fused_capacity(prefix: int, ndev: int) -> int:
+    """Static per-(src, dest) slot capacity of the in-pass exchange: twice
+    the uniform share of a shard's prefix (murmur3 spreads groups near
+    uniformly), bucketed; the overflow count read at the one boundary sync
+    catches the adversarial remainder."""
+    from ..parallel.shuffle import cap_bucket
+    return min(cap_bucket(2 * (-(-prefix // ndev))), cap_bucket(prefix))
+
+
+def _build_fused_fn(stage: FusedStage, compiled: "CompiledFusedStage"):
+    """The stage's device pass over every shard at once: partial groupby
+    (the shard index leads the keys) -> per-shard group rank into a static
+    prefix -> murmur3 placement -> plane pack and grid transpose -> the
+    combine groupby.  All on the device, no host sync."""
+    from ..ops.aggregate import groupby_padded
+    from ..ops.row_conversion import (_build_planes, _from_planes,
+                                      fixed_width_layout)
+    from ..parallel.shuffle import exchange_planes, partition_ids_specs
+
+    partial, combine = stage.partial, stage.combine
+    keys = list(combine.keys)
+    nk = len(keys)
+    sel = stage.sel_names()
+    ns, prefix, capacity = compiled.ndev, compiled.prefix, compiled.capacity
+
+    def fn(datas, masks, n_valid: int):
+        dev = datas[0].device
+        n = datas[0].shape[0]
+        n_local = n // ns
+        table = Table([Column(dt, data=d, validity=m)
+                       for dt, d, m in zip(compiled.in_dtypes, datas,
+                                           masks)], list(sel))
+        row = torch.arange(n, device=dev)
+        live = row < n_valid
+        src = row // n_local
+
+        # 1) every shard's partial aggregate in one batched groupby: the
+        # shard index leads the keys, so the live groups come out in
+        # (shard, key) order, each shard's groups one contiguous run
+        pkeys, paggs, ng1 = groupby_padded(
+            table, None, [(c, op) for c, op in partial.aggs],
+            keys_cols=[Column(INT32, data=src.to(torch.int32))] +
+            [table.column(k) for k in keys], row_mask=live, device=dev)
+        # per-shard group rank: group g of shard s sits at start[s] + rank,
+        # so slot (s, r) of the static prefix reads group start[s] + r.
+        # A shard holding more groups than the prefix counts them as
+        # overflow (the executor re-plans on the host path)
+        gshard = pkeys[0][2].to(torch.int64)
+        gshard = torch.where(row < ng1, gshard, ns)
+        ngs = torch.zeros(ns + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, gshard, torch.ones_like(gshard))[:ns]
+        start = torch.cumsum(ngs, 0) - ngs
+        pre_overflow = (ngs - prefix).clamp(min=0).sum()
+        r = torch.arange(prefix, device=dev)
+        gidx = (start[:, None] + r[None, :]).reshape(-1).clamp(max=n - 1)
+        glive = (r[None, :] < ngs[:, None]).reshape(-1)
+        kcols = [Column(s[1], data=s[2][gidx], validity=s[3][gidx])
+                 for s in pkeys[1:]]
+        acols = [Column(c.dtype, data=c.data[gidx],
+                        validity=None if c.validity is None
+                        else c.validity[gidx]) for c in paggs]
+
+        # 2) Spark-exact placement of each live group, the same
+        # partition_ids_specs the host exchange uses
+        specs = tuple(("fixed", i, kcols[i].dtype) for i in range(nk))
+        dest = partition_ids_specs(kcols, specs, ns)
+
+        # 3) partial rows -> word planes -> one dense (dst, src) block
+        layout = fixed_width_layout([c.dtype for c in kcols + acols])
+        compiled.layout = layout
+        m = ns * prefix
+        planes = _build_planes(layout, [c.data for c in kcols + acols],
+                               [c.validity for c in kcols + acols], m, dev)
+        slot_src = torch.arange(m, device=dev) // prefix
+        planes_in, rok, overflow = exchange_planes(
+            planes, slot_src, dest, glive, ns, capacity)
+
+        # 4) received planes -> columns -> every shard's combine, batched
+        # the same way (the receiving shard leads the keys)
+        datas_in, masks_in = _from_planes(layout, planes_in)
+        recv = Table([Column(dt, data=d, validity=v)
+                      for dt, d, v in zip(layout.schema, datas_in,
+                                          masks_in)],
+                     keys + list(partial.names))
+        rshard = torch.arange(rok.shape[0], device=dev) // (ns * capacity)
+        out_keys, out_aggs, ng2 = groupby_padded(
+            recv, None, [(c, op) for c, op in combine.aggs],
+            keys_cols=[Column(INT32, data=rshard.to(torch.int32))] +
+            [recv.column(k) for k in keys], row_mask=rok, device=dev)
+
+        # 5) outputs: padded combine results (live groups first, in
+        # (shard, key) order), the per-(src, dest) send matrix and the
+        # overflow count, all still on the device
+        flat = torch.where(glive, slot_src * (ns + 1) + dest,
+                           slot_src * (ns + 1) + ns)
+        sent = torch.zeros(ns * (ns + 1), dtype=torch.int64, device=dev) \
+            .index_add_(0, flat, torch.ones_like(flat)) \
+            .reshape(ns, ns + 1)[:, :ns]
+        kdat = tuple(s[2] for s in out_keys[1:])
+        kval = tuple(s[3] for s in out_keys[1:])
+        return (kdat, kval, tuple(out_aggs), ng2, sent,
+                overflow + pre_overflow)
+
+    return fn
+
+
+class CompiledFusedStage:
+    """One (stage, input shape-class, shard count) entry: the stage's
+    device pass as one callable, plus the counter that proves
+    re-dispatches replay one entry (``traces``: 1 after its first call,
+    the "compile"; every later call is a replay)."""
+
+    __slots__ = ("key", "stage", "ndev", "prefix", "capacity", "in_dtypes",
+                 "key_dtypes", "layout", "traces", "calls", "fn")
+
+    def __init__(self, key: tuple, stage: FusedStage, ndev: int,
+                 in_dtypes: tuple, key_dtypes: tuple, n_local: int):
+        self.key = key
+        self.stage = stage
+        self.ndev = ndev
+        self.prefix = fused_prefix(n_local)
+        self.capacity = fused_capacity(self.prefix, ndev)
+        self.in_dtypes = in_dtypes
+        self.key_dtypes = key_dtypes
+        self.layout = None  # set by the first call (host wire attribution)
+        self.traces = 0
+        self.calls = 0
+        self.fn = _build_fused_fn(stage, self)
+
+    def __call__(self, datas, masks, n_valid: int):
+        self.calls += 1
+        kind = "replay" if self.traces else "compile"
+        self.traces = 1
+        if not metrics.enabled() and not timeline.enabled():
+            return self.fn(datas, masks, n_valid)
+        # host-side dispatch time: the call enqueues device work and
+        # returns (no sync added here)
+        t0 = time.perf_counter()
+        out = self.fn(datas, masks, n_valid)
+        dt = time.perf_counter() - t0
+        timeline.complete(f"engine.fused_stage.{kind}", t0, dt)
+        if metrics.enabled():
+            metrics.count(f"engine.fused_stage.{kind}")
+            if kind == "compile":
+                metrics.observe("engine.fused_stage.trace_s", dt)
+        return out
+
+
+class FusedStageCache:
+    """LRU: (stage fingerprint, input shape-class, shards, prefix) ->
+    CompiledFusedStage, with ``engine.fused_stage_cache.{hit,miss,
+    eviction}`` counters; sized by ``config.segment_cache`` unless given."""
+
+    def __init__(self, maxsize: Optional[int] = None):
+        self._maxsize = None if maxsize is None else int(maxsize)
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[tuple, CompiledFusedStage]" = \
+            OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @property
+    def maxsize(self) -> int:
+        return self._maxsize if self._maxsize is not None \
+            else config.segment_cache
+
+    def get(self, stage: FusedStage, padded: Table,
+            ndev: int) -> CompiledFusedStage:
+        n_local = padded.num_rows // ndev
+        # the prefix is in the key: a fuse_groups change must build a fresh
+        # entry, not replay one sized for the old budget
+        key = (stage.fingerprint(), shape_class(padded), ndev,
+               fused_prefix(n_local))
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                metrics.count("engine.fused_stage_cache.hit")
+                return hit
+        compiled = CompiledFusedStage(
+            key, stage, ndev, tuple(c.dtype for c in padded.columns),
+            tuple(padded.column(k).dtype for k in stage.combine.keys),
+            n_local)
+        with self._lock:
+            racer = self._entries.get(key)
+            if racer is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                metrics.count("engine.fused_stage_cache.hit")
+                return racer
+            self.misses += 1
+            metrics.count("engine.fused_stage_cache.miss")
+            self._entries[key] = compiled
+            while len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+                metrics.count("engine.fused_stage_cache.eviction")
+            return compiled
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions,
+                    "size": len(self._entries), "maxsize": self.maxsize}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+#: process-wide fused-stage cache
+FUSED_STAGE_CACHE = FusedStageCache()
+
+
+def fused_pad(t: Table, ndev: int):
+    """``pad_to_multiple`` with the empty-input synthesis: an empty table
+    still runs the same one-sync pass over ``ndev`` dead rows (n_valid 0
+    masks every one), which keeps ``verify.sync_budget`` exact for empty
+    inputs.  Returns (padded Table, n_valid)."""
+    from ..parallel.mesh import pad_to_multiple
+    if t.num_rows == 0:
+        return Table([Column(c.dtype,
+                             data=c.data.new_zeros((ndev,)),
+                             validity=torch.zeros(ndev, dtype=torch.bool,
+                                                  device=c.data.device))
+                      for c in t.columns], list(t.names)), 0
+    return pad_to_multiple(t, ndev)
+
+
+def run_fused_stage(stage: FusedStage, table: Table, mesh,
+                    axis: str = ROW_AXIS, prepped=None):
+    """Execute the whole distributed stage over ``table`` (the partial
+    aggregate's input) on ``mesh``.  Returns ``(result Table, info)``, or
+    None when the static prefix or capacity overflowed (the caller re-plans
+    on the host-orchestrated path).
+
+    ``prepped`` is an optional ``(padded, n_valid)`` pair from a caller
+    that already padded and placed the stage input (the AQE counts probe
+    does).
+
+    Exactly one deliberate host sync for the whole stage: one fetch of the
+    overflow count, the live group count, the null flags of every output
+    column and the per-(src, dest) send matrix.  The output comes back in
+    ascending key order, the order one global groupby (the host path)
+    gives: hash placement makes the shards' key sets disjoint, so a stable
+    sort of the (shard, key)-ordered groups by key restores it."""
+    from ..ops.order import SortKey, encode_keys, lexsort
+    from ..parallel.mesh import axis_size, shard_table
+
+    ndev = axis_size(mesh, axis)
+    if prepped is None:
+        padded, nrows = fused_pad(table.select(stage.sel_names()), ndev)
+        padded = shard_table(padded, mesh, axis)
+    else:
+        padded, nrows = prepped
+    compiled = FUSED_STAGE_CACHE.get(stage, padded, ndev)
+    datas = tuple(c.data for c in padded.columns)
+    masks = tuple(c.validity for c in padded.columns)
+    with timeline.span("engine.fused_stage.dispatch",
+                       {"capacity": int(compiled.capacity),
+                        "rows": int(table.num_rows)}):
+        kdat, kval, aggs, ngroups, sent, overflow = compiled(
+            datas, masks, int(nrows))
+
+    # the one deliberate host sync of the whole stage
+    metrics.host_sync(label="groupby-compaction")
+    dev = ngroups.device
+    glive = torch.arange(kval[0].shape[0], device=dev) < ngroups
+    nulls = [(glive & ~v).any() for v in kval] + \
+        [torch.zeros((), dtype=torch.bool, device=dev) if c.validity is None
+         else (glive & ~c.validity).any() for c in aggs]
+    head = torch.cat([torch.stack([overflow.to(torch.int64),
+                                   ngroups.to(torch.int64)] +
+                                  [f.to(torch.int64) for f in nulls]),
+                      sent.reshape(-1)]).cpu()
+    if int(head[0]):
+        metrics.count("engine.fused_stage.overflow_fallbacks")
+        return None
+    ng = int(head[1])
+    has_null = [bool(f) for f in head[2:2 + len(nulls)]]
+    counts = head[2 + len(nulls):].reshape(ndev, ndev).numpy()
+
+    key_cols = [Column(dt, data=d[:ng], validity=v[:ng])
+                for dt, d, v in zip(compiled.key_dtypes, kdat, kval)]
+    order = lexsort(encode_keys([SortKey(c) for c in key_cols]))
+    cols = [Column(c.dtype, data=c.data[order],
+                   validity=c.validity[order] if hn else None)
+            for c, hn in zip(key_cols, has_null)]
+    for c, hn in zip(aggs, has_null[len(kval):]):
+        cols.append(Column(c.dtype, data=c.data[:ng][order],
+                           validity=c.validity[:ng][order] if hn else None))
+    out = Table(cols, list(stage.combine.keys) + list(stage.combine.names))
+    metrics.count("engine.fused_stage.dispatches")
+    cap, row_size = compiled.capacity, compiled.layout.row_size
+    info = {"capacity": cap, "ndev": ndev, "row_size": row_size,
+            "wire_bytes": ndev * ndev * cap * row_size,
+            "rows_matrix": counts,  # [src, dest], device-derived
+            "wire_matrix": np.full((ndev, ndev), cap * row_size, np.int64),
+            "in_rows": int(table.num_rows)}
+    return out, info

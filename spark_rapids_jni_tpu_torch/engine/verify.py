@@ -18,16 +18,17 @@ The port of the plan-level half of ``spark_rapids_jni_tpu/engine/verify.py``
 - The static censuses the optimizer's ledger and EXPLAIN read
   (``node_paths``, ``plan_exchanges``, ``decision_census``,
   ``check_partitioning``).
+- The plan-level models of the executor's segments and deliberate host
+  syncs (``plan_segments``, ``sync_budget``, ``check_sync_budget``),
+  ``fused-stage`` entries included: the static charge equals the runtime
+  ``engine.host_sync`` counter (``metrics.host_sync``).
 
-Scan schemas come from the port's ``ParquetFile`` footers.  ORC scans are
-not ported: their schema resolves as unknown, and the executor raises.
+Scan schemas come from the port's ``ParquetFile`` and ``ORCFile`` footers.
 
-The JAX package's second half, the lints of its compiled segments
-(``plan_segments``, ``sync_budget``, ``lint_segment``,
-``lint_decode_segment``, ``lint_fused_stage``, ``lint_plan_artifacts``,
-``lint_segment_cache``), reads jaxprs and has no torch counterpart: the
-engine phase of ``chip_smoke.py`` counts the card's synchronising calls
-instead, under ``torch.cuda.set_sync_debug_mode("warn")``.
+The JAX package's jaxpr lints (``lint_segment``, ``lint_decode_segment``,
+``lint_fused_stage``, ``lint_plan_artifacts``, ``lint_segment_cache``) have
+no torch counterpart: ``chip_smoke.py`` counts the card's synchronising
+calls instead, under ``torch.cuda.set_sync_debug_mode("warn")``.
 """
 
 from __future__ import annotations
@@ -718,7 +719,7 @@ def decision_census(plan: PlanNode, dist: bool = False) -> list:
     remove structure and are deliberately absent here.
 
     ``dist`` gates the order-sensitive-revert entries (the revert only
-    happens when exchange planning ran, which the port does not do yet).
+    happens when exchange planning ran).
     """
     from .plan import ORDER_SENSITIVE_AGGS
     paths = node_paths(plan)
@@ -798,3 +799,186 @@ def check_partitioning(plan: PlanNode) -> None:
                     f"aggregate groups on {list(node.keys)} but its input "
                     f"is hash-placed on {list(p.keys)}: groups would be "
                     f"split across devices")
+
+
+#: the deliberate host syncs the engine's fused paths may pay, by site
+#: label (``metrics.host_sync(label=...)`` at each call site)
+SYNC_WHITELIST = (
+    "segment-boundary-compaction",  # run_map_segment's survivor count
+    "combine-sizing",               # combine_partials' max(ngroups) fetch
+    "groupby-compaction",           # _compact_padded's ngroups fetch
+    "exchange-counts-sizing",       # hash exchange phase-1 counts fetch
+    "exchange-compaction",          # hash exchange live-count fetch
+)
+
+
+def plan_segments(plan: PlanNode, cfg=None, ndev: Optional[int] = None,
+                  resolver: Optional[SchemaResolver] = None) -> list:
+    """The fused segments the executor would form for ``plan``: the same
+    selection logic as ``_exec``/``_exec_streamed``, run statically.  Each
+    entry is ``{"kind": "map"|"agg"|"stream-agg", "segment", "node",
+    "path"}``.  Interior chain nodes are consumed by their segment, so the
+    walk (parents before children) never double-roots a chain.
+
+    With ``cfg.fuse_exchange`` on a mesh of more than one shard, a
+    partial/final aggregate sandwich lowers to a single ``{"kind":
+    "fused-stage", "stage": FusedStage, ...}`` entry (the whole distributed
+    stage is one device pass; the combine, exchange and partial nodes are
+    all consumed by it, and the walk continues below the partial's child,
+    where the runtime roots its lower segments).  ``resolver`` feeds the
+    static dtype eligibility check; ``ndev`` defaults to the engine's shard
+    count (``config.shards``)."""
+    from ..utils.config import config as _config
+    from . import segment as sg
+    from .executor import _stream_scan_of
+    cfg = cfg or _config
+    fuse_x = getattr(cfg, "fuse_exchange", False)
+    if fuse_x and ndev is None:
+        from ..parallel.mesh import default_shards
+        ndev = default_shards()
+    fuse_x = fuse_x and (ndev or 0) > 1
+    if not cfg.fuse and not fuse_x:
+        return []
+    nparents = sg.parent_counts(plan)
+    paths = node_paths(plan)
+    out: list = []
+    consumed: set = set()
+    for node in reversed(topo_nodes(plan)):
+        if id(node) in consumed:
+            continue
+        if fuse_x and isinstance(node, Aggregate):
+            stage = sg.fused_sandwich(node)
+            if stage is not None \
+                    and nparents.get(id(stage.exchange), 1) == 1 \
+                    and nparents.get(id(stage.partial), 1) == 1:
+                schema = (verify(stage.partial.child, resolver)
+                          if resolver is not None else None)
+                if sg.fused_static_eligible(stage, schema):
+                    for nd in (node, stage.exchange, stage.partial):
+                        consumed.add(id(nd))
+                    out.append({"kind": "fused-stage", "stage": stage,
+                                "node": node, "path": paths[id(node)]})
+                    continue
+        if not cfg.fuse:
+            continue
+        if isinstance(node, Aggregate):
+            scan = _stream_scan_of(node)
+            if scan is not None:
+                cand = sg.build_stream_segment(node, scan, nparents,
+                                               fuse_join=cfg.fuse_join)
+                if cand is not None and cand.input is scan \
+                        and sg.worthwhile(cand, streaming=True):
+                    for nd in cand.nodes():
+                        consumed.add(id(nd))
+                    out.append({"kind": "stream-agg", "segment": cand,
+                                "node": node, "path": paths[id(node)]})
+                continue  # streamed-interpreted: no fused artifact
+        if isinstance(node, (Aggregate, Filter, Project)):
+            seg = sg.build_segment(node, nparents)
+            if seg is not None and sg.worthwhile(seg):
+                for nd in seg.nodes():
+                    consumed.add(id(nd))
+                out.append({"kind": "agg" if seg.agg is not None else "map",
+                            "segment": seg, "node": node,
+                            "path": paths[id(node)]})
+    return out
+
+
+def _statically_eligible(seg, resolver: SchemaResolver) -> bool:
+    """Static shadow of ``runtime_eligible``: a string/nested computed-on
+    column makes the executor fall back to the interpreter (the segment
+    never runs, no tracked sync).  Unknown dtypes assume eligible."""
+    schema = verify(seg.input, resolver)
+    if schema is None:
+        return True
+    used = set(seg.columns_used())
+    for j in seg.joins():
+        used |= set(j.left_keys)
+    for name in used:
+        dt = schema.get(name)
+        if dt is not None and (dt.is_string or dt.is_nested):
+            return False
+    return True
+
+
+def sync_budget(plan: PlanNode, resolver: Optional[SchemaResolver] = None,
+                cfg=None, ndev: Optional[int] = None) -> list:
+    """Static model of the deliberate host syncs an optimized plan pays on
+    the fused paths: one entry per sync, ``site`` naming the whitelisted
+    call site.  Mirrors the runtime ``engine.host_sync`` counter: a map
+    segment pays one boundary compaction, an agg segment one groupby
+    compaction, a streamed agg segment a combine-sizing fetch plus the
+    compaction, however many chunks stream through.
+
+    ``ndev`` is the shard count the exchange entries assume (default: the
+    engine's ``config.shards``).  A hash exchange pays its counts fetch
+    and its compaction fetch, empty input included.  A ``fused-stage``
+    entry charges exactly one ``groupby-compaction`` for the whole
+    sandwich (partial + exchange + combine), plus one
+    ``exchange-counts-sizing`` when AQE is on and the exchange carries the
+    ``_aqe_split`` stamp (the probe always pays its counts fetch before
+    picking the fused or the host path).  The overflow and AQE-routed host
+    fallbacks are runtime re-plans outside this static model.  One
+    upper-bound case remains: an agg segment whose input turns out empty
+    at run time falls back to the interpreted groupby and pays no sync
+    where this model charges one.
+    """
+    from ..utils.config import config as _config
+    resolver = resolver or SchemaResolver()
+    entries: list = []
+    fused_exchanges: set = set()
+    for s in plan_segments(plan, cfg, ndev=ndev, resolver=resolver):
+        if s["kind"] == "fused-stage":
+            stage, path = s["stage"], s["path"]
+            fused_exchanges.add(id(stage.exchange))
+            aqe = getattr(cfg or _config, "aqe", False)
+            if aqe and getattr(stage.exchange, "_aqe_split", False):
+                entries.append({"site": "exchange-counts-sizing",
+                                "path": path, "count": 1})
+            entries.append({"site": "groupby-compaction", "path": path,
+                            "count": 1})
+            continue
+        seg, path = s["segment"], s["path"]
+        if not _statically_eligible(seg, resolver):
+            entries.append({"site": "interpreted-fallback", "path": path,
+                            "count": 0})
+            continue
+        if s["kind"] == "map":
+            entries.append({"site": "segment-boundary-compaction",
+                            "path": path, "count": 1})
+        elif s["kind"] == "agg":
+            entries.append({"site": "groupby-compaction", "path": path,
+                            "count": 1})
+        else:  # stream-agg
+            entries.append({"site": "combine-sizing", "path": path,
+                            "count": 1})
+            entries.append({"site": "groupby-compaction", "path": path,
+                            "count": 1})
+    # hash exchanges pay one counts-sizing fetch and one compaction fetch
+    # each; a broadcast is a replica and pays none.  On one shard the
+    # exchange is the identity and skips both.  An exchange lowered into a
+    # fused stage is charged by its fused-stage entry above, never here.
+    if ndev is None:
+        from ..parallel.mesh import default_shards
+        ndev = default_shards()
+    if ndev > 1:
+        paths = node_paths(plan)
+        for n in topo_nodes(plan):
+            if isinstance(n, Exchange) and n.kind == "hash" \
+                    and id(n) not in fused_exchanges:
+                entries.append({"site": "exchange-counts-sizing",
+                                "path": paths[id(n)], "count": 1})
+                entries.append({"site": "exchange-compaction",
+                                "path": paths[id(n)], "count": 1})
+    return entries
+
+
+def check_sync_budget(plans, cfg=None, ndev: Optional[int] = None) -> tuple:
+    """``(entries, violations)`` over a set of optimized plans: every
+    entry with a nonzero count must name a whitelisted sync site."""
+    entries: list = []
+    for p in plans:
+        entries += sync_budget(p, cfg=cfg, ndev=ndev)
+    bad = [e for e in entries
+           if e["count"] and e["site"] not in SYNC_WHITELIST]
+    return entries, bad

@@ -29,6 +29,7 @@ JAX package's names: ``io.parquet.*``, ``io.device_decode.*``,
 
 from __future__ import annotations
 
+import contextlib
 import mmap
 import os
 from dataclasses import dataclass, field
@@ -39,7 +40,7 @@ import torch
 from .. import device as _device
 from .. import dtypes as dt
 from ..columnar import Column, Table
-from ..utils import tracing
+from ..utils import timeline, tracing
 from ..utils.errors import retry_call
 from . import snappy
 from .thrift import decode_struct
@@ -1352,6 +1353,12 @@ def _prefetched(gen, depth: int, cancel=None):
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
     DONE, FAIL = object(), object()
+    # cross-thread flow arrows on the event timeline: the producer's
+    # staging of chunk n links to the consumer's dispatch of chunk n by
+    # id.  Both sides count the same in-order sequence, so fid_base + n
+    # matches without threading ids through the queue items.
+    tl = timeline.enabled()
+    fid_base = timeline.new_flow_base() if tl else 0
 
     def put(item) -> bool:  # False once the consumer abandoned us
         while not stop.is_set():
@@ -1376,17 +1383,32 @@ def _prefetched(gen, depth: int, cancel=None):
 
     def producer():
         try:
-            for item in gen:
+            it = iter(gen)
+            n = 0
+            while True:
+                # the span covers producing chunk n; the flow tail starts
+                # inside it, so the arrow binds to the producer slice
+                with timeline.span("io.parquet.produce_chunk",
+                                   {"chunk": n}) if tl \
+                        else contextlib.nullcontext():
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        break
+                    if tl:
+                        timeline.flow_start("io.parquet.chunk", fid_base + n)
                 if not put(item):
                     if not stop.is_set() and cancel is not None:
                         cancel.check()  # -> typed error via FAIL
                     return
+                n += 1
             put_ctrl(DONE)
         except BaseException as e:  # surface decode errors to the consumer
             put_ctrl((FAIL, e))
 
     t = threading.Thread(target=producer, daemon=True)
     t.start()
+    k = 0
     try:
         while True:
             item = q.get()
@@ -1395,6 +1417,12 @@ def _prefetched(gen, depth: int, cancel=None):
             if isinstance(item, tuple) and len(item) == 2 \
                     and item[0] is FAIL:
                 raise item[1]
+            if tl:
+                # the arrow head: chunk k leaves the queue for dispatch on
+                # the consumer thread
+                with timeline.span("io.parquet.consume_chunk", {"chunk": k}):
+                    timeline.flow_finish("io.parquet.chunk", fid_base + k)
+                k += 1
             yield item
     finally:
         # early abandonment (LIMIT queries, consumer errors) must not leave

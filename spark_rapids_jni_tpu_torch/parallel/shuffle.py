@@ -15,9 +15,14 @@ the grid.  The slot placement is the JAX package's bit for bit.
 
 Static shapes, as in JAX: each source shard sends at most ``capacity`` rows
 to each destination.  Capacity comes from a two-phase exchange: a counts
-pass (hash + one bincount) whose matrix reaches the host (the one
+pass (hash + one scatter-add) whose matrix reaches the host (the one
 deliberate sync, ``exchange-counts-sizing``), then the payload pass at the
 counts' power-of-two bucket.  Overflow is still counted.
+
+``split=(hot_dests, salt)`` is adaptive execution's hot-key split
+(``engine/adaptive.py``): rows placed on a hot destination are re-dealt
+round-robin over every shard, ``(salt + shard + hot_idx) % nshards``, where
+``hot_idx`` counts each source shard's own live hot rows.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from ..columnar import Column, Table
 from ..ops.hash import murmur3_hash, murmur3_hash_specs
 from ..ops.row_conversion import _build_planes, _from_planes, \
     fixed_width_layout
-from ..utils import metrics
+from ..utils import metrics, timeline
 from ..utils.tracing import traced
 from .mesh import ROW_AXIS, Mesh, axis_size
 from .stringplane import (LEN_SUFFIX, WORD_SUFFIX, explode_strings,
@@ -217,10 +222,35 @@ def partition_counts(table: Table, mesh: Mesh, keys: list,
     return counts.reshape(ns, ns + 1)[:, :ns].cpu().numpy()
 
 
+def split_dest(dest: torch.Tensor, split: tuple, live, nshards: int):
+    """Destinations after the AQE hot-key split ``(hot_dests, salt)``.
+
+    Rows placed on a hot destination are re-dealt round-robin across every
+    shard by a per-source-shard running index of its live hot rows,
+    staggered by the source shard (``(salt + shard + hot_idx) % nshards``),
+    which bounds each destination's share of a shard's hot rows at
+    ceil(hot / nshards).  Dead rows do not advance the deal: the capacity
+    projection counted live rows only.  In the batched layout the running
+    index is a cumsum along each shard's row block of the (shards, n_local)
+    view, as JAX's per-shard ``cumsum`` is."""
+    hot, salt = split
+    is_hot = dest == int(hot[0])
+    for h in hot[1:]:
+        is_hot = is_hot | (dest == int(h))
+    if live is not None:
+        is_hot = is_hot & live
+    n = dest.shape[0]
+    src = shard_ids(n, nshards, dest.device)
+    hot_idx = torch.cumsum(is_hot.to(torch.int64).reshape(
+        nshards, n // nshards), dim=1).reshape(-1) - 1
+    return torch.where(is_hot, (int(salt) + src + hot_idx) % nshards, dest)
+
+
 @traced("shuffle_table_padded")
 def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
                          capacity: int | None = None, axis=ROW_AXIS,
-                         live=None, key_specs: tuple | None = None):
+                         live=None, key_specs: tuple | None = None,
+                         split: tuple | None = None):
     """Shuffle a row-sharded table by key hash.
 
     Returns (padded Table of nshards^2 * capacity rows, bool row mask,
@@ -233,7 +263,13 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
     bytes.  ``key_specs``: precomputed ``key_specs_for`` of an already
     exploded table (the engine explodes once so every chunk shares one
     layout).
+
+    ``split``: the AQE skew-split ``(hot_dests, salt)`` (``split_dest``).
+    The internal counts pass sizes capacity for the unsplit placement, so
+    a split needs the projected capacity passed explicitly.
     """
+    if split is not None and capacity is None:
+        raise ValueError("split requires an explicitly projected capacity")
     plan = None
     if any(c.dtype.is_string for c in table.columns):
         names0 = table.names or [f"c{i}" for i in range(table.num_columns)]
@@ -263,7 +299,9 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
     metrics.count("parallel.shuffle.exchanges")
     metrics.count("parallel.shuffle.exchange_bytes", wire)
     metrics.observe("parallel.shuffle.capacity_rows", capacity)
-    with torch.profiler.record_function("parallel.shuffle.exchange"):
+    with torch.profiler.record_function("parallel.shuffle.exchange"), \
+            timeline.span("parallel.shuffle.exchange",
+                          {"capacity": int(capacity), "wire_bytes": wire}):
         dev = mesh.device
         dest = partition_ids_specs(table.columns, key_specs, ns) if n else \
             torch.zeros(0, dtype=torch.int64, device=dev)
@@ -271,6 +309,8 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
                                [c.validity for c in table.columns], n, dev)
         if live is not None:
             live = live.to(dev)
+        if split is not None:
+            dest = split_dest(dest, split, live, ns)
         planes_in, ok, overflow = exchange_planes(
             planes, shard_ids(n, ns, dev), dest, live, ns, capacity)
         datas, masks = _from_planes(layout, planes_in)
@@ -284,19 +324,21 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
 
 def shuffle_chunks_pipelined(chunks, mesh: Mesh, keys: list,
                              capacity: int | None = None, depth: int = 1,
-                             axis=ROW_AXIS, key_specs: tuple | None = None):
+                             axis=ROW_AXIS, key_specs: tuple | None = None,
+                             split: tuple | None = None):
     """Exchange a stream of row-sharded chunks (or ``(Table, live)`` pairs)
     with dispatch-ahead overlap: up to ``depth`` exchanges are queued on
     the device in front of the consumer (``depth=0`` is the serial loop).
     Pass ``capacity`` sized from global counts so one grid shape serves the
-    stream.  Yields ``(padded Table, ok mask, overflow)`` per chunk, in
-    order."""
+    stream; ``split`` passes the AQE skew split through (it needs
+    ``capacity``).  Yields ``(padded Table, ok mask, overflow)`` per chunk,
+    in order."""
     inflight: deque = deque()
     for item in chunks:
         tbl, live = item if isinstance(item, tuple) else (item, None)
         inflight.append(shuffle_table_padded(
             tbl, mesh, list(keys), capacity=capacity, axis=axis, live=live,
-            key_specs=key_specs))
+            key_specs=key_specs, split=split))
         metrics.gauge_max("parallel.shuffle.dispatch_ahead", len(inflight))
         if len(inflight) > max(0, int(depth)):
             yield inflight.popleft()

@@ -27,6 +27,15 @@ time of use.
 | ``spill_dir``       | ``None``  | host directory of the spilled exchange's buffers (``None``: host memory) |
 | ``query_timeout_s`` | ``0.0``   | cooperative per-query deadline (0 = none) |
 | ``roofline_gbps``   | ``0.0``   | device bandwidth ceiling for explain's ``roofline_frac`` (0 = none) |
+| ``aqe``             | ``False`` | adaptive execution (``engine/adaptive.py``): broadcast flip, skew split, profile-warmed planning |
+| ``aqe_skew``        | ``4.0``   | measured exchange skew (max/mean destination rows) above which the hot-key split fires |
+| ``aqe_broadcast_rows`` | ``-1`` | runtime broadcast-flip threshold in rows (-1 = follow ``broadcast_rows``) |
+| ``fuse_exchange``   | ``False`` | the partial-agg -> hash Exchange -> final-agg sandwich runs as one fused stage |
+| ``fuse_groups``     | ``4096``  | the fused stage's static per-shard group budget (power-of-two bucketed) |
+| ``profile_dir``     | ``""``    | query-profile store directory (``utils/profile.py``; empty = off) |
+| ``profile_cap``     | ``512``   | profile-store ring capacity (files) |
+| ``timeline``        | ``False`` | in-process event timeline (``utils/timeline.py``) |
+| ``timeline_cap``    | ``16384`` | timeline ring capacity (events) |
 """
 
 from __future__ import annotations
@@ -53,6 +62,15 @@ class Config:
     spill_dir: Optional[str] = None
     query_timeout_s: float = 0.0
     roofline_gbps: float = 0.0
+    aqe: bool = False
+    aqe_skew: float = 4.0
+    aqe_broadcast_rows: int = -1
+    fuse_exchange: bool = False
+    fuse_groups: int = 4096
+    profile_dir: str = ""
+    profile_cap: int = 512
+    timeline: bool = False
+    timeline_cap: int = 16384
 
 
 config = Config()

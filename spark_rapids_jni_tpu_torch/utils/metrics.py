@@ -17,21 +17,25 @@ Threading: the active query is a thread-local; code that fans work out to
 helper threads captures ``current()`` and re-enters it with ``bind(qm)``.
 ``QueryMetrics`` carries its own lock.
 
-Not ported yet: the JAX package's hooks into its flight recorder,
-profile store and timeline (``blackbox``, ``profile``, ``timeline``), and
-the trace ids and SLO gauges that ride on them.
+With ``config.profile_dir`` set, every query writes one compact profile
+at close (``utils/profile.py``), keyed by its plan fingerprint and its
+pre-optimization source fingerprint; ``host_sync`` drops an instant on the
+event timeline (``utils/timeline.py``) when that is on.  Not ported: the
+JAX package's flight recorder (``blackbox``) and the trace ids and SLO
+gauges that ride on it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import logging
 import math
 import threading
 import time
 from collections import deque
 
-from . import tracing
+from . import timeline, tracing
 from .config import config
 
 _lock = threading.Lock()
@@ -140,8 +144,9 @@ class QueryMetrics:
     """
 
     __slots__ = ("qid", "name", "t0", "wall_s", "stats", "counters",
-                 "node_spans", "hists", "timers", "mem", "outcome",
-                 "degradations", "decisions", "progress", "_lock")
+                 "node_spans", "hists", "timers", "mem", "fingerprint",
+                 "source_fingerprint", "outcome", "degradations",
+                 "decisions", "progress", "_lock")
 
     def __init__(self, name: str = ""):
         self.qid = next(_qids)
@@ -154,6 +159,10 @@ class QueryMetrics:
         self.hists: dict[str, dict] = {}
         self.timers: dict[str, float] = {}
         self.mem: dict = {}
+        self.fingerprint: str = ""  # plan fingerprint (profile-store key)
+        # pre-optimization fingerprint (AQE profile-history key: stable
+        # across runs even when warming changes the optimized shape)
+        self.source_fingerprint: str = ""
         self.outcome: dict = {}
         self.degradations: list = []
         self.decisions: list = []
@@ -277,6 +286,10 @@ class QueryMetrics:
                    "nodes": nodes}
             if self.mem:
                 out["memory"] = dict(self.mem)
+            if self.fingerprint:
+                out["fingerprint"] = self.fingerprint
+            if self.source_fingerprint:
+                out["source_fingerprint"] = self.source_fingerprint
             if self.outcome:
                 out["outcome"] = dict(self.outcome)
             if self.degradations:
@@ -309,6 +322,15 @@ def query(name: str = ""):
         summary = qm.summary()
         with _lock:
             _recent.append(summary)
+        if config.profile_dir:
+            # one compact profile per query (utils/profile.py): host I/O
+            # that must never fail the query it describes
+            try:
+                from . import profile
+                profile.write(summary)
+            except Exception as e:  # noqa: BLE001 -- best-effort telemetry
+                logging.getLogger(__name__).warning(
+                    "profile write failed: %s", e)
 
 
 @contextlib.contextmanager
@@ -383,7 +405,13 @@ def gauge_max(name: str, value: float) -> None:
 
 
 def host_sync(n: int = 1, key=None, label: str = "") -> None:
-    """Record a deliberate device->host sync point (attributed if keyed)."""
+    """Record a deliberate device->host sync point (attributed if keyed).
+    Also drops a timeline instant at the sync site, gated by the timeline
+    alone, so the trace marks the engine's deliberate syncs with the
+    metrics layer off."""
+    if config.timeline:
+        timeline.instant("engine.host_sync",
+                         {"label": label} if label else None)
     if not config.metrics:
         return
     tracing.count("engine.host_sync", n)

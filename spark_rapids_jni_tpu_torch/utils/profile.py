@@ -1,0 +1,406 @@
+"""Persistent query-profile store: one compact JSON per query, on disk.
+
+The port of ``spark_rapids_jni_tpu/utils/profile.py``, file format
+included: a profile either package writes, the other reads (same keys,
+same file names).  Per-stage profiles pay off when they survive the
+process: regression hunting, plan-choice feedback (AQE's profile-warmed
+planning, ``engine/adaptive.py``) and accounting compare *runs*, not live
+counters.  ``metrics.query()`` calls ``write(summary)`` on exit when
+``config.profile_dir`` is set, storing a compact derivative of the query
+summary (plan fingerprint, per-node wall/rows/bytes/GB/s/roofline_frac,
+exchange skew + straggler share, cache and host-sync counters, histogram
+percentiles) into a bounded on-disk ring.
+
+Layout: ``<dir>/profile-<epoch_ns>-<fp12>.json``: zero-padded nanosecond
+timestamp first, so lexical filename order IS chronological order, and the
+first 12 hex chars of the plan fingerprint second, so same-plan runs are
+greppable.  The ring is bounded by ``config.profile_cap`` (oldest pruned).
+
+Readers: ``history`` (AQE rule 3), ``latest``, ``store_summary``, and
+``diff``/``render_diff``, which attribute a regression between two runs
+(node slowed, cache stopped hitting, exchange skewed, latency tail grew).
+
+All writes are best-effort (the metrics layer logs and swallows profile IO
+errors); reads raise normally so tools see real failures.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+from .config import config
+
+#: schema version stamped into every profile (bump on breaking change)
+VERSION = 1
+
+#: histogram fields carried into the compact profile (percentiles are the
+#: point; full bucket arrays stay in the live snapshot only)
+_HIST_FIELDS = ("count", "sum", "mean", "min", "max", "p50", "p90", "p99")
+
+#: counter prefixes worth keeping per profile — cache attribution, sync
+#: counts, exchange/shuffle traffic, bridge health, recovery activity
+#: (the JAX package's list, so both stores keep the same keys)
+_COUNTER_KEEP = ("engine.exchange", "parallel.shuffle", "bridge.",
+                 "engine.errors", "engine.retries", "engine.degraded",
+                 "engine.estimate", "faults.injected")
+
+#: decision/node q-error at or above this is a misestimate — the planner's
+#: input was off by >= 4x, enough to flip a broadcast-vs-shuffle choice
+#: (same module-constant convention as the diff thresholds below)
+_QERR_FLAG = 4.0
+
+
+def enabled() -> bool:
+    """Live ``config.profile_dir`` gate, read at call time."""
+    return bool(config.profile_dir)
+
+
+def _keep_counter(name: str) -> bool:
+    # "cache." catches every cache family (engine.build_cache.hit/miss,
+    # engine.segment_cache.*) regardless of the separator before "cache"
+    return ("cache." in name or name == "engine.host_sync"
+            or name.startswith(_COUNTER_KEEP))
+
+
+def _ceiling() -> Optional[float]:
+    try:
+        from ..engine.explain import roofline_ceiling_gbps
+        return roofline_ceiling_gbps()
+    except Exception:
+        return None
+
+
+def compact(summary: dict) -> dict:
+    """Derive the compact profile document from a ``QueryMetrics.summary()``.
+
+    Pure function of the summary (plus the pinned roofline ceiling) — the
+    round-trip tests rely on every gated key surviving write -> read."""
+    ceiling = _ceiling()
+    nodes = []
+    exchanges = []
+    for r in summary.get("nodes", ()):
+        wall = float(r.get("wall_s") or 0.0)
+        moved = int(r.get("bytes_in") or 0) + int(r.get("bytes_out") or 0)
+        gbps = (moved / wall / 1e9) if (moved and wall > 0) else None
+        node = {"label": r.get("label", ""),
+                "path": r.get("path"),
+                "calls": int(r.get("calls") or 0),
+                "wall_s": round(wall, 6),
+                "rows_in": int(r.get("rows_in") or 0),
+                "rows_out": int(r.get("rows_out") or 0),
+                "chunks": int(r.get("chunks") or 0),
+                "host_syncs": int(r.get("host_syncs") or 0),
+                "est_rows": r.get("est_rows"),
+                "q_error": r.get("q_error"),
+                "bytes_moved": moved,
+                "GBps": round(gbps, 3) if gbps is not None else None,
+                "roofline_frac": (round(gbps / ceiling, 6)
+                                  if gbps is not None and ceiling else None)}
+        nodes.append(node)
+        if r.get("wire_bytes") or r.get("skew") is not None:
+            exchanges.append({
+                "label": r.get("label", ""),
+                "wire_bytes": int(r.get("wire_bytes") or 0),
+                "skew": r.get("skew"),
+                "straggler_share": r.get("straggler_share"),
+                "max_dev_rows": r.get("max_dev_rows"),
+                "dev_rows": list(r.get("dev_rows") or ()),
+                # broadcast exchanges are structurally balanced (skew 1.0)
+                # but pay ndev-1 replicas of the build — the AQE rules
+                # read the replication cost from here
+                "replica_bytes": r.get("replica_bytes")})
+    prof = {"version": VERSION,
+            "fingerprint": summary.get("fingerprint", ""),
+            "source_fingerprint": summary.get("source_fingerprint", ""),
+            "trace_id": summary.get("trace_id", ""),
+            "qid": summary.get("qid"),
+            "name": summary.get("name", ""),
+            "wall_s": summary.get("wall_s"),
+            "stats": dict(summary.get("stats") or {}),
+            "nodes": nodes,
+            "exchanges": exchanges,
+            "counters": {k: v for k, v in
+                         (summary.get("counters") or {}).items()
+                         if _keep_counter(k)},
+            "histograms": {k: {f: h.get(f) for f in _HIST_FIELDS}
+                           for k, h in
+                           (summary.get("histograms") or {}).items()}}
+    if summary.get("memory"):
+        prof["memory"] = dict(summary["memory"])
+    # recovery attribution: how the query ended and what capacity it gave
+    # up on the way (diff flags degradation regressions)
+    if summary.get("outcome"):
+        prof["outcome"] = dict(summary["outcome"])
+    if summary.get("degradations"):
+        prof["degradations"] = [dict(d) for d in summary["degradations"]]
+    if summary.get("decisions"):
+        by_path = {n["path"]: n for n in nodes if n.get("path")}
+        prof["decisions"] = [_score_decision(d, by_path)
+                             for d in summary["decisions"]]
+    return prof
+
+
+def _score_decision(d: dict, by_path: dict) -> dict:
+    """Score one optimizer-ledger entry against the run's actuals: the
+    node at the decision's path supplies ``actual_rows``; the entry's own
+    ``est_rows`` supplies the estimate; q-error >= ``_QERR_FLAG`` marks a
+    misestimate (the broadcast-chosen-on-est=50k-that-saw-5M case the
+    diff flags)."""
+    from . import metrics
+    out = dict(d)
+    node = by_path.get(d.get("path"))
+    if node is not None:
+        out["actual_rows"] = node.get("rows_out")
+        qe = metrics.q_error(d.get("est_rows"), node.get("rows_out"))
+        if qe is not None:
+            out["q_error"] = qe
+            out["misestimate"] = qe >= _QERR_FLAG
+    return out
+
+
+def write(summary: dict, dir_path: str | None = None) -> str | None:
+    """Persist one profile for ``summary``; returns its path (None = off).
+
+    Atomic (tmp + rename) so a concurrent reader never sees a torn JSON,
+    then prunes the ring past ``config.profile_cap``."""
+    d = dir_path or config.profile_dir
+    if not d:
+        return None
+    os.makedirs(d, exist_ok=True)
+    prof = compact(summary)
+    fp12 = (prof["fingerprint"] or "noplan")[:12]
+    path = os.path.join(d, f"profile-{time.time_ns():020d}-{fp12}.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(prof, f, separators=(",", ":"))
+    os.replace(tmp, path)
+    _prune(d)
+    return path
+
+
+def _prune(d: str) -> None:
+    paths = list_profiles(d)
+    for p in paths[:max(0, len(paths) - config.profile_cap)]:
+        try:
+            os.remove(p)
+        except OSError:
+            pass  # concurrent pruner got it first
+
+
+def list_profiles(dir_path: str | None = None) -> list:
+    """Profile paths in the store, oldest first (lexical = chronological)."""
+    d = dir_path or config.profile_dir
+    if not d or not os.path.isdir(d):
+        return []
+    return sorted(os.path.join(d, n) for n in os.listdir(d)
+                  if n.startswith("profile-") and n.endswith(".json"))
+
+
+def read(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def latest(fingerprint: str | None = None,
+           dir_path: str | None = None) -> dict | None:
+    """Newest profile (optionally restricted to one plan fingerprint)."""
+    for p in reversed(list_profiles(dir_path)):
+        prof = read(p)
+        if fingerprint is None or prof.get("fingerprint") == fingerprint:
+            return prof
+    return None
+
+
+def history(source_fingerprint: str | None,
+            dir_path: str | None = None) -> dict | None:
+    """Measured history for one SOURCE plan fingerprint — the AQE
+    profile-warming lookup (``optimize()`` consults this on every run
+    when ``config.aqe`` is on).
+
+    Matches on the ``source_fingerprint`` stamped by the optimizer (the
+    pre-rewrite plan), not the optimized fingerprint: warming changes the
+    optimized shape, so only the source is stable across runs.  Returns
+    the NEWEST matching run's scored decision ledger and exchange
+    attribution plus how many stored runs matched, or None when the store
+    holds no prior run (torn/unreadable profiles are skipped, exactly
+    like the pruner's concurrent-reader tolerance).
+    """
+    if not source_fingerprint:
+        return None
+    runs = 0
+    newest = None
+    for p in list_profiles(dir_path):
+        try:
+            prof = read(p)
+        except (OSError, ValueError):
+            continue
+        if prof.get("source_fingerprint") == source_fingerprint:
+            runs += 1
+            newest = prof  # list_profiles is oldest-first
+    if newest is None:
+        return None
+    return {"source_fingerprint": source_fingerprint,
+            "fingerprint": newest.get("fingerprint", ""),
+            "runs": runs,
+            "wall_s": newest.get("wall_s"),
+            "decisions": list(newest.get("decisions") or ()),
+            "exchanges": list(newest.get("exchanges") or ())}
+
+
+def store_summary(dir_path: str | None = None) -> dict:
+    """Aggregate view of the store: profile count, worst exchange skew
+    seen, and the latest chunk-latency p99 across stored profiles."""
+    paths = list_profiles(dir_path)
+    top_skew = None
+    p99 = None
+    for p in paths:
+        try:
+            prof = read(p)
+        except (OSError, ValueError):
+            continue
+        for ex in prof.get("exchanges", ()):
+            s = ex.get("skew")
+            if s is not None and (top_skew is None or s > top_skew):
+                top_skew = s
+        h = prof.get("histograms", {}).get("engine.stream.chunk_latency_s")
+        if h and h.get("p99") is not None:
+            p99 = h["p99"]  # newest wins (paths are chronological)
+    return {"dir": dir_path or config.profile_dir,
+            "profiles": len(paths),
+            "top_exchange_skew": top_skew,
+            "chunk_latency_p99_s": p99}
+
+
+# -- cross-run diff -----------------------------------------------------------
+
+#: relative wall-time growth on a node that counts as "slowed"
+_SLOW_FRAC = 0.25
+#: absolute wall-time growth floor (ignore sub-ms jitter on tiny nodes)
+_SLOW_ABS_S = 0.002
+#: skew growth that counts as "exchange skewed"
+_SKEW_DELTA = 0.25
+
+
+def _by_label(rows) -> dict:
+    out = {}
+    for r in rows:
+        # duplicate labels (shared subtrees) fold together: sum wall
+        prev = out.get(r["label"])
+        if prev is None:
+            out[r["label"]] = dict(r)
+        else:
+            prev["wall_s"] = prev.get("wall_s", 0) + r.get("wall_s", 0)
+    return out
+
+
+def diff(base: dict | str, cand: dict | str) -> dict:
+    """Per-node / per-counter / per-histogram deltas ``cand - base``.
+
+    Accepts profile dicts or paths.  The ``flags`` list is the regression
+    attribution: which node slowed, which cache stopped hitting, which
+    exchange skewed, which latency tail grew."""
+    a = read(base) if isinstance(base, str) else base
+    b = read(cand) if isinstance(cand, str) else cand
+    an, bn = _by_label(a.get("nodes", ())), _by_label(b.get("nodes", ()))
+    nodes = []
+    flags = []
+    for label in sorted(set(an) | set(bn)):
+        wa = (an.get(label) or {}).get("wall_s") or 0.0
+        wb = (bn.get(label) or {}).get("wall_s") or 0.0
+        d = {"label": label, "wall_s_base": wa, "wall_s_cand": wb,
+             "wall_s_delta": round(wb - wa, 6),
+             "q_error_base": (an.get(label) or {}).get("q_error"),
+             "q_error_cand": (bn.get(label) or {}).get("q_error")}
+        nodes.append(d)
+        if wb - wa > _SLOW_ABS_S and (wa == 0 or wb / wa > 1 + _SLOW_FRAC):
+            flags.append(f"node-slowed: {label} "
+                         f"{wa * 1e3:.2f}ms -> {wb * 1e3:.2f}ms")
+    counters = {}
+    ac, bc = a.get("counters") or {}, b.get("counters") or {}
+    for k in sorted(set(ac) | set(bc)):
+        da = int(ac.get(k) or 0)
+        db = int(bc.get(k) or 0)
+        if da != db:
+            counters[k] = {"base": da, "cand": db, "delta": db - da}
+        if "cache." in k and (k.endswith(".hit") or k.endswith(".hits")):
+            if db < da:
+                flags.append(f"cache-hits-dropped: {k} {da} -> {db}")
+    exchanges = []
+    ae = _by_label(a.get("exchanges", ()))
+    be = _by_label(b.get("exchanges", ()))
+    for label in sorted(set(ae) | set(be)):
+        sa = (ae.get(label) or {}).get("skew")
+        sb = (be.get(label) or {}).get("skew")
+        exchanges.append({"label": label, "skew_base": sa, "skew_cand": sb})
+        if sa is not None and sb is not None and sb - sa > _SKEW_DELTA:
+            flags.append(f"exchange-skew-up: {label} {sa:.2f} -> {sb:.2f}")
+    hists = {}
+    ah, bh = a.get("histograms") or {}, b.get("histograms") or {}
+    for k in sorted(set(ah) | set(bh)):
+        pa = (ah.get(k) or {}).get("p99")
+        pb = (bh.get(k) or {}).get("p99")
+        if pa is None and pb is None:
+            continue
+        hists[k] = {"p99_base": pa, "p99_cand": pb}
+        if pa and pb and pb / pa > 1 + _SLOW_FRAC:
+            flags.append(f"p99-up: {k} {pa:.6g} -> {pb:.6g}")
+    # degradation attribution: a candidate run that gave up capacity
+    # (interpreted fallback, halved/spilled/passthrough exchange) is a
+    # regression even when its wall time looks fine
+    base_steps = [d.get("step", "?") for d in a.get("degradations", ())]
+    cand_steps = [d.get("step", "?") for d in b.get("degradations", ())]
+    for step in cand_steps:
+        if step not in base_steps:
+            flags.append(f"degraded: {step}")
+    ob, oc = a.get("outcome") or {}, b.get("outcome") or {}
+    if oc.get("status") == "error" and ob.get("status") != "error":
+        flags.append(f"outcome-error: kind={oc.get('kind', '?')}")
+    # misestimate attribution: a candidate decision whose planner input was
+    # off by >= _QERR_FLAG when the base run's wasn't means the cardinality
+    # feed regressed (stats drifted, estimate path broke) — flag it even if
+    # the plan happened to stay fast on this data
+    base_mis = {(d.get("kind"), d.get("path"))
+                for d in a.get("decisions", ()) if d.get("misestimate")}
+    for d in b.get("decisions", ()):
+        if d.get("misestimate") and \
+                (d.get("kind"), d.get("path")) not in base_mis:
+            flags.append(
+                f"misestimate: {d.get('kind', '?')} at {d.get('path', '?')} "
+                f"est={d.get('est_rows')} actual={d.get('actual_rows')} "
+                f"q_error={d.get('q_error')}")
+    return {"fingerprint": a.get("fingerprint", ""),
+            "fingerprint_match":
+                a.get("fingerprint", "") == b.get("fingerprint", ""),
+            "base_name": a.get("name", ""), "cand_name": b.get("name", ""),
+            "wall_s_base": a.get("wall_s"), "wall_s_cand": b.get("wall_s"),
+            "nodes": nodes, "counters": counters,
+            "exchanges": exchanges, "histograms": hists, "flags": flags}
+
+
+def render_diff(d: dict) -> str:
+    """Human-readable diff table."""
+    lines = [f"profile diff: {d['base_name']} -> {d['cand_name']} "
+             f"(fingerprint {'match' if d['fingerprint_match'] else 'MISMATCH'})",
+             f"  wall: {d['wall_s_base']}s -> {d['wall_s_cand']}s"]
+    for n in d["nodes"]:
+        lines.append(f"  node {n['label']}: "
+                     f"{n['wall_s_base'] * 1e3:.2f}ms -> "
+                     f"{n['wall_s_cand'] * 1e3:.2f}ms "
+                     f"({n['wall_s_delta'] * 1e3:+.2f}ms)")
+    for e in d["exchanges"]:
+        lines.append(f"  exchange {e['label']}: skew "
+                     f"{e['skew_base']} -> {e['skew_cand']}")
+    for k, v in d["counters"].items():
+        lines.append(f"  counter {k}: {v['base']} -> {v['cand']} "
+                     f"({v['delta']:+d})")
+    for k, v in d["histograms"].items():
+        lines.append(f"  hist {k}: p99 {v['p99_base']} -> {v['p99_cand']}")
+    if d["flags"]:
+        lines.append("  flags:")
+        lines.extend(f"    ! {f}" for f in d["flags"])
+    else:
+        lines.append("  flags: none")
+    return "\n".join(lines)

@@ -1,0 +1,275 @@
+"""In-process event timeline: Chrome trace-event export of host clocks.
+
+The port of ``spark_rapids_jni_tpu/utils/timeline.py``.  ``torch.profiler``
+traces the device (the executor's ``record_function`` ranges); this module
+is the lightweight host-side record beside it: a bounded ring buffer of
+events recorded with nothing but ``perf_counter`` and a deque append,
+exported as Chrome trace-event JSON that loads directly in Perfetto
+(ui.perfetto.dev) or ``chrome://tracing``.
+
+Gated by ``config.timeline`` (default off); with the flag off every entry
+point returns immediately (no contexts, no allocation), so the streaming
+fast paths stay uninstrumented.  Like the metrics layer, recording is pure
+host-side bookkeeping: no device syncs anywhere.
+
+Event vocabulary (Chrome trace-event ``ph`` codes):
+
+- **Spans** — ``span(name)`` / ``complete(name, t0, dur)`` record one
+  ``"X"`` complete event per finished span (begin/end collapsed into ts +
+  dur).  A still-open span holds no buffer slot, so ring-buffer overflow
+  can only ever drop *finished* history — open spans cannot be corrupted.
+- **Instants** — ``instant(name)``: ``"i"`` events marking the engine's
+  deliberate host syncs (``metrics.host_sync`` calls through here).
+- **Flows** — ``flow_start``/``flow_finish``: ``"s"``/``"f"`` arrows
+  linking the prefetch producer's staging of chunk N to the consumer's
+  dispatch of chunk N across threads, and a hash exchange's dispatch of
+  chunk N to its receipt on each shard's lane.
+- **Counters** — ``counter(name, value)``: ``"C"`` tracks (device
+  live-bytes over time, fed by ``metrics.mem_checkpoint``).
+
+Events carry the active query name (``metrics.current()``) as an arg when
+one is bound, so timeline slices correlate with per-query summaries.
+
+Export: ``export()`` -> ``{"traceEvents": [...]}`` with thread-name
+metadata records; ``dump(path)`` writes it as JSON.  Timestamps are
+``perf_counter`` microseconds (monotonic within the process, which is all
+the trace viewer needs).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import logging
+import os
+import threading
+import time
+from collections import deque
+
+from .config import config
+
+_lock = threading.Lock()
+_buf: deque | None = None      # created lazily at first record / reset()
+_buf_cap = 0
+_thread_names: dict[int, str] = {}
+_flow_seq = itertools.count(1)
+_dropped = 0                   # events evicted by ring overflow
+_warned: set[str] = set()      # query names already warned about overflow
+
+_PID = os.getpid()
+
+#: synthetic tid base for per-shard lanes — far above any OS thread id,
+#: so shard lanes render as their own named rows next to real threads
+_DEV_TID_BASE = 1 << 48
+
+
+def device_lane(dev: int) -> int:
+    """Synthetic tid of shard ``dev``'s timeline lane."""
+    return _DEV_TID_BASE + int(dev)
+
+
+def enabled() -> bool:
+    """Live ``config.timeline`` gate, read at call time."""
+    return config.timeline
+
+
+def _now_us() -> float:
+    return time.perf_counter() * 1e6
+
+
+def _qname() -> str | None:
+    # lazy import: metrics imports this module at load time (host_sync
+    # instants), so the reverse edge must resolve at call time
+    from . import metrics
+    q = metrics.current()
+    return q.name if q is not None else None
+
+
+def _buffer() -> deque:
+    """The ring buffer at the configured capacity (``config.timeline_cap``).
+
+    ``deque(maxlen=cap)`` IS the ring: appends past capacity drop the
+    oldest event.  Only finished events ever occupy a slot, so overflow
+    discards old history and nothing else."""
+    global _buf, _buf_cap
+    cap = max(16, int(config.timeline_cap))
+    if _buf is None or _buf_cap != cap:
+        old = list(_buf) if _buf is not None else []
+        _buf = deque(old[-cap:], maxlen=cap)
+        _buf_cap = cap
+    return _buf
+
+
+def _append(ev: dict, dev: int | None = None) -> None:
+    global _dropped
+    if dev is None:
+        tid, tname = threading.get_ident(), None
+    else:
+        tid, tname = device_lane(dev), f"device:{int(dev)}"
+    ev["pid"] = _PID
+    ev["tid"] = tid
+    q = _qname()
+    if q is not None:
+        ev.setdefault("args", {})["query"] = q
+    dropped_now = warn = False
+    with _lock:
+        if tid not in _thread_names:
+            _thread_names[tid] = tname if tname is not None \
+                else threading.current_thread().name
+        buf = _buffer()
+        if buf.maxlen is not None and len(buf) == buf.maxlen:
+            _dropped += 1
+            dropped_now = True
+            qkey = q or ""
+            if qkey not in _warned:
+                _warned.add(qkey)
+                warn = True
+        buf.append(ev)
+    if dropped_now:
+        # overflow gauge lives in the metrics layer; lazy import breaks
+        # the metrics -> timeline load-time edge
+        from . import metrics
+        metrics.gauge_set("timeline.dropped_events", float(_dropped))
+    if warn:
+        logging.getLogger(__name__).warning(
+            "timeline ring overflow%s: oldest events dropped "
+            "(raise config.timeline_cap, currently %d)",
+            f" in query {q!r}" if q else "", config.timeline_cap)
+
+
+# -- recording ---------------------------------------------------------------
+
+@contextlib.contextmanager
+def span(name: str, args: dict | None = None):
+    """Record one complete ("X") event for the enclosed region.
+
+    No-op context when the timeline is off (checked once at entry)."""
+    if not config.timeline:
+        yield
+        return
+    t0 = _now_us()
+    try:
+        yield
+    finally:
+        ev = {"name": name, "ph": "X", "ts": t0, "dur": _now_us() - t0}
+        if args:
+            ev["args"] = dict(args)
+        _append(ev)
+
+
+def complete(name: str, t0_s: float, dur_s: float,
+             args: dict | None = None, dev: int | None = None) -> None:
+    """Record an already-measured span (perf_counter seconds), for call
+    sites that timed the region themselves (segment compile/replay).
+    ``dev`` routes the slice onto that device's lane instead of the
+    calling thread's row (per-shard exchange receipt)."""
+    if not config.timeline:
+        return
+    ev = {"name": name, "ph": "X", "ts": t0_s * 1e6, "dur": dur_s * 1e6}
+    if args:
+        ev["args"] = dict(args)
+    _append(ev, dev=dev)
+
+
+def instant(name: str, args: dict | None = None,
+            dev: int | None = None) -> None:
+    """Thread-scoped instant ("i") event — the host-sync markers."""
+    if not config.timeline:
+        return
+    ev = {"name": name, "ph": "i", "ts": _now_us(), "s": "t"}
+    if args:
+        ev["args"] = dict(args)
+    _append(ev, dev=dev)
+
+
+def counter(name: str, value: float, dev: int | None = None) -> None:
+    """Counter-track ("C") sample, e.g. device live-bytes over time; with
+    ``dev``, a per-shard track (cumulative exchange rows per shard)."""
+    if not config.timeline:
+        return
+    _append({"name": name, "ph": "C", "ts": _now_us(),
+             "args": {"value": float(value)}}, dev=dev)
+
+
+def new_flow_base() -> int:
+    """A fresh id block for one flow stream: ids ``base + n`` are unique
+    across streams as long as a stream emits < 2^32 flows."""
+    return next(_flow_seq) << 32
+
+
+def flow_start(name: str, flow_id: int, args: dict | None = None) -> None:
+    """Flow arrow tail ("s"): the producer side of a chunk handoff."""
+    if not config.timeline:
+        return
+    ev = {"name": name, "ph": "s", "ts": _now_us(), "id": int(flow_id),
+          "cat": "flow"}
+    if args:
+        ev["args"] = dict(args)
+    _append(ev)
+
+
+def flow_finish(name: str, flow_id: int, args: dict | None = None,
+                dev: int | None = None) -> None:
+    """Flow arrow head ("f", binding to the enclosing slice): the consumer
+    side of the handoff recorded by ``flow_start`` with the same id.
+    ``dev`` lands the arrow head on that shard's lane (exchange dispatch
+    -> per-shard receipt)."""
+    if not config.timeline:
+        return
+    ev = {"name": name, "ph": "f", "ts": _now_us(), "id": int(flow_id),
+          "cat": "flow", "bp": "e"}
+    if args:
+        ev["args"] = dict(args)
+    _append(ev, dev=dev)
+
+
+# -- export / lifecycle ------------------------------------------------------
+
+def events_snapshot() -> list:
+    """Copy of the buffered events (oldest first), no metadata records."""
+    with _lock:
+        return [dict(e) for e in (_buf or ())]
+
+
+def export() -> dict:
+    """Chrome trace-event document: thread-name metadata + buffered events.
+
+    Loadable as-is at ui.perfetto.dev / chrome://tracing."""
+    with _lock:
+        events = [dict(e) for e in (_buf or ())]
+        names = dict(_thread_names)
+        dropped = _dropped
+    meta = [{"name": "process_name", "ph": "M", "pid": _PID, "tid": 0,
+             "args": {"name": "spark_rapids_jni_tpu_torch"}}]
+    for tid, tname in sorted(names.items()):
+        meta.append({"name": "thread_name", "ph": "M", "pid": _PID,
+                     "tid": tid, "args": {"name": tname}})
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+            "otherData": {"dropped_events": dropped}}
+
+
+def dump(path: str) -> str:
+    """Write ``export()`` to ``path`` (dirs created); returns the path."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(export(), f)
+    return path
+
+
+def dropped_events() -> int:
+    """Events evicted by ring overflow since the last ``reset()``."""
+    with _lock:
+        return _dropped
+
+
+def reset() -> None:
+    """Drop all buffered events (tests; also picks up a changed cap)."""
+    global _buf, _buf_cap, _dropped
+    with _lock:
+        _buf = None
+        _buf_cap = 0
+        _dropped = 0
+        _thread_names.clear()
+        _warned.clear()
