@@ -4,14 +4,15 @@ NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives a Spark stage end to end on the card, and scans
 NDS-shaped Parquet files on the card for q5-lite, hand-wired and as an
 engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, the
-exchange layer on a mesh of 8 shards of the card, and adaptive execution
-with the fused partial -> exchange -> combine stage on the same mesh.
+exchange layer on a mesh of 8 shards of the card, adaptive execution
+with the fused partial -> exchange -> combine stage on the same mesh, and
+the device server the JVM talks to (bridge/), reached over its socket.
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
         [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
         [--exchange-rows 16777216] [--exchange-string-rows 4194304]
-        [--adaptive-rows 16777216]
+        [--adaptive-rows 16777216] [--bridge-rows 16777216]
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -141,6 +142,21 @@ Phases (any failed check raises, and the script exits non-zero):
             event timeline dumped); engine q5 fused against unfused.  Every
             result against the one-shard answer and a numpy oracle;
             deliberate host syncs against verify.sync_budget.
+15. bridge  the port's device server on the card, in a thread of this
+            process, and once as ``python3 -m
+            spark_rapids_jni_tpu_torch.bridge.server --device cuda``, with
+            the C ABI harness (g++ from src/main/cpp) at "0 leaks" against
+            it.  RowConversion over the wire at 2^24 rows of the stage's
+            schema (IMPORT_TABLE, TO_ROWS on K1, EXPORT_COLUMN, FROM_ROWS
+            on K2, EXPORT_TABLE bit-exact), murmur3 and the groupby
+            against the port in process; engine q5 as one PLAN_EXECUTE,
+            cold and warm, equal to in-process execute, K3/W1/W2 launched
+            in the server; four concurrent q5 point queries beside a bulk
+            scan of the adaptive fact with the scheduler on and off (p50,
+            p95), max_sessions=2 queueing, a burn-rate shed, OP_CANCEL of a
+            running scan, a device-decode fault retried to the same answer
+            and a post-mortem bundle naming its trace id.  Round-trip ms,
+            shm GB/s, the plan's warm time beside in-process, launches.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -3484,9 +3500,541 @@ def phase_adaptive(torch, root, tracing, n: int, seed: int) -> dict:
     out["launches"] = launches
     check(all(launches[name] > 0 for name in DECODE_KERNELS),
           "K3/W1/W2 launched in the phase's fact scans")
-    for p in (fpath, dpath):
-        p.unlink()
+    dpath.unlink()  # the fact stays: the bridge phase scans it
     out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 15. the device server the JVM talks to (bridge/): RowConversion, engine
+#     plans, the scheduler, cancel, faults and the flight recorder over the
+#     wire
+# ---------------------------------------------------------------------------
+
+POINT_CLIENTS = 4          # concurrent point lookups beside one scan
+POINT_OBJECTIVE_MS = 50    # the lookups' SLO objective (scheduler weight 8)
+POINT_ALONE_REPS = 20      # lookups timed with the server otherwise idle
+THINK_S = 0.1              # a lookup client's pause between its queries
+BASELINE_S = 2.0           # the lookups' run with no scan beside them
+OVERHEAD_REPS = 7          # warm q5 runs, alternating in process and wire
+CACHE_HIT_REPS = 20        # PLAN_EXECUTE round trips served from the cache
+SERVING_ROUNDS = 5          # scans a mode, lookups beside each
+
+
+def _named(table, names):
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    return Table(list(table.columns), names)
+
+
+def build_c_abi(out_dir: Path) -> Path:
+    """g++ the C ABI (src/main/cpp/src/tpubridge.cpp) and its round-trip
+    harness (src/main/cpp/tests/bridge_roundtrip_test.cpp), with the
+    flags of src/main/cpp/CMakeLists.txt; returns the harness."""
+    cpp = Path(__file__).resolve().parent / "src" / "main" / "cpp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = ["-std=c++17", "-O2", "-Wall", "-Wextra", "-Werror",
+             "-I", str(cpp / "include")]
+    lib = out_dir / "libtpubridge.so"
+    harness = out_dir / "bridge_roundtrip_test"
+    subprocess.run(["g++", *flags, "-shared", "-fPIC",
+                    str(cpp / "src" / "tpubridge.cpp"), "-o", str(lib),
+                    "-lrt"], check=True, capture_output=True, timeout=300)
+    subprocess.run(["g++", *flags, str(cpp / "tests" /
+                                       "bridge_roundtrip_test.cpp"),
+                    "-L", str(out_dir), "-ltpubridge",
+                    f"-Wl,-rpath,{out_dir}", "-o", str(harness)],
+                   check=True, capture_output=True, timeout=300)
+    return harness
+
+
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def phase_bridge(torch, root, tracing, n: int, seed: int) -> dict:
+    """The port's device server on the card, driven as Spark drives it:
+
+    1. Servers: ``bridge.server.BridgeServer`` on the card in a thread of
+       this process (so the launch counters and CUDA events see its work),
+       and ``python3 -m spark_rapids_jni_tpu_torch.bridge.server --device
+       cuda`` spawned once, against which the C ABI round-trip harness
+       (built here with g++) must print "0 leaks".
+    2. RowConversion over the wire on the stage's table (bench.py's
+       build_host_table schema, 2^24 rows, 0.8 GB: one Spark batch of the
+       1 GiB default target): IMPORT_TABLE, TO_ROWS (K1), EXPORT_COLUMN,
+       FROM_ROWS (K2), EXPORT_TABLE bit-exact against the input, then
+       murmur3 seed 42 and the stage's groupby bit-exact against the
+       port's in-process result.
+    3. Engine q5 over the store_sales split as one PLAN_EXECUTE, cold and
+       warm, equal to the in-process ``execute`` (sums rel 1e-9, counts
+       exact); K3/W1/W2 launch in the server.  The bridge's overhead is
+       the median of seven paired differences (a warm in-process run, then
+       a warm PLAN_EXECUTE), with their spread, beside the round trip of a
+       PLAN_EXECUTE served from the result cache.
+    4. Serving: four clients sending point lookups (one store by key, an
+       SLO objective of 50 ms, so weight 8), each 100 ms after its last
+       answer, with no scan beside them, then while one bulk scan of the
+       adaptive fact (weight 1) runs, with the scheduler on, off, and with
+       max_sessions=1 (the lookups queue behind the scan); the lookup
+       alone first, as the objective's yardstick; max_sessions=2 queues;
+       a burning fingerprint is shed at once on a saturated server;
+       OP_CANCEL of a running scan; a parquet.device_decode fault
+       recovers to the same answer; a failing query leaves a post-mortem
+       bundle under blackbox_dir that names its trace id.
+
+    Every error reply the phase did not ask for fails it."""
+    import shutil
+    import threading
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import BridgeClient, spawn_server
+    from spark_rapids_jni_tpu_torch.bridge import shm as shmlib
+    from spark_rapids_jni_tpu_torch.bridge.server import serve
+    from spark_rapids_jni_tpu_torch.columnar.interop import (
+        HostColumn, table_from_numpy)
+    from spark_rapids_jni_tpu_torch.engine.scheduler import SCHEDULER
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.hash import murmur3_hash
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import convert_to_rows
+    from spark_rapids_jni_tpu_torch.utils import blackbox, faults
+    from spark_rapids_jni_tpu_torch.utils.errors import (
+        AdmissionRejectedError, QueryCancelledError, TransientError)
+    from spark_rapids_jni_tpu_torch.bridge import protocol as P
+    out = {"phase": "bridge", "rows": n}
+    t_phase = time.perf_counter()
+    # sockets in a short directory beside the shm segments: a Unix socket
+    # path holds at most 107 bytes, and a temporary root may be longer
+    sock_dir = Path(tempfile.mkdtemp(prefix="srjt-", dir=shmlib.SHM_DIR))
+    sock = str(sock_dir / "card.sock")
+    ready = threading.Event()
+    st = threading.Thread(target=serve, args=(sock, DEV, ready),
+                          daemon=True)
+    st.start()
+    check(ready.wait(30), "the in-process server listens")
+    c = BridgeClient(sock, device="cpu")
+    spawned = None
+    try:
+        # -- 1. the module entry point and the C ABI ---------------------
+        t0 = time.perf_counter()
+        sock2 = str(sock_dir / "spawned.sock")
+        spawned = spawn_server(sock2, device=DEV)
+        out["spawn_s"] = time.perf_counter() - t0
+        harness = build_c_abi(Path(__file__).resolve().parent /
+                              "spark_rapids_jni_tpu_torch" / "kernels" /
+                              "_build" / "c_abi")
+        res = subprocess.run([str(harness), sock2], capture_output=True,
+                             text=True, timeout=300)
+        out["c_abi"] = res.stdout.strip().splitlines()[-1:]
+        check(res.returncode == 0 and "0 leaks" in res.stdout,
+              f"C ABI harness against the spawned server: {res.stdout}"
+              f"{res.stderr}")
+        c2 = BridgeClient(sock2, device="cpu")
+        m2 = c2.metrics()
+        check(m2["device"] == DEV and m2["errors"] == 2,
+              "the spawned server ran on the card (its two errors: the "
+              "harness's deliberate bad handle and double release)")
+        c2.shutdown_server()
+        spawned.wait(timeout=60)
+        check(spawned.returncode == 0, "the spawned server shut down")
+        spawned = None
+
+        pings = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            c.ping()
+            pings.append(time.perf_counter() - t0)
+        out["ping_ms"] = {"p50": _percentile(pings, 50) * 1e3,
+                          "p95": _percentile(pings, 95) * 1e3}
+
+        # -- 2. RowConversion over the wire ------------------------------
+        cols = stage_columns(n, seed)
+        names = [x[0] for x in cols]
+        host = table_from_numpy([HostColumn(t, s, d, v)
+                                 for _, t, s, d, v in cols], names,
+                                device="cpu")
+        nbytes = sum(x[3].nbytes + (0 if x[4] is None else n)
+                     for x in cols)
+        dev_table = table_from_numpy([HostColumn(t, s, d, v)
+                                      for _, t, s, d, v in cols], names,
+                                     device=DEV)
+        wire = {"table_bytes": nbytes}
+        steps = {}
+        for rep in ("cold", "warm"):
+            if rep == "warm":
+                tracing.reset_counters("kernel.")
+            t0 = time.perf_counter()
+            th = c.import_table(host)
+            s_imp = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            blobs = c.convert_to_rows(th)
+            s_to = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            offs, raw = c.export_rows_column(blobs[0])
+            s_expc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            th2 = c.convert_from_rows(blobs[0], dev_table.dtypes())
+            s_from = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = c.export_table(th2)
+            s_expt = time.perf_counter() - t0
+            steps[rep] = {"import_s": s_imp, "to_rows_ms": s_to * 1e3,
+                          "export_column_s": s_expc,
+                          "from_rows_ms": s_from * 1e3,
+                          "export_table_s": s_expt}
+            if rep == "cold":
+                for h in (th, th2, *blobs):
+                    c.release(h)
+        wire_launches = kernel_launches(tracing)
+        wire.update(steps)
+        warm = steps["warm"]
+        wire["import_gbps"] = nbytes / warm["import_s"] / 1e9
+        wire["export_gbps"] = nbytes / warm["export_table_s"] / 1e9
+        wire["rows_gbps"] = len(raw) / warm["export_column_s"] / 1e9
+        check(len(blobs) == 1 and len(offs) == n + 1
+              and int(offs[-1]) == len(raw) == 48 * n,
+              "one 48-byte-row blob over the wire")
+        local_blob = convert_to_rows(dev_table, device=DEV)[0]
+        check(np.array_equal(raw, local_blob.children[0].data.cpu().numpy()
+                             .view(np.uint8)),
+              "the exported row blob == the in-process K1 blob")
+        for (name, _, _, data, valid), got in zip(cols, back.columns):
+            g = got.data.cpu().numpy()
+            check(np.array_equal(g.view(np.uint8),
+                                 np.ascontiguousarray(data).view(np.uint8))
+                  if valid is None else
+                  np.array_equal(g[valid].view(np.uint8),
+                                 data[valid].view(np.uint8)),
+                  f"wire round trip of {name} is bit-exact")
+            check(np.array_equal(got.validity_numpy(),
+                                 np.ones(n, bool) if valid is None
+                                 else valid),
+                  f"wire round trip keeps {name}'s validity")
+        del back, raw, offs
+        hh = c.hash(th, "murmur3", seed=42)
+        t0 = time.perf_counter()
+        gh = c.groupby(th, [2], [(0, P.AGG_SUM), (0, P.AGG_COUNT),
+                                 (1, P.AGG_MIN), (1, P.AGG_MAX),
+                                 (3, P.AGG_MEAN), (4, P.AGG_COUNT)])
+        wire["groupby_ms"] = (time.perf_counter() - t0) * 1e3
+        hth = c.make_table([hh])
+        got_h = c.export_table(hth)
+        want_h = murmur3_hash(dev_table, 42, device=DEV)
+        check(np.array_equal(got_h.columns[0].data.cpu().numpy(),
+                             want_h.data.cpu().numpy()),
+              "murmur3 seed 42 over the wire == in process")
+        got_g = c.export_table(gh)
+        cn = [f"c{i}" for i in range(len(names))]
+        want_g = groupby(_named(dev_table, cn), ["c2"],
+                         [("c0", "sum"), ("c0", "count"), ("c1", "min"),
+                          ("c1", "max"), ("c3", "mean"), ("c4", "count")],
+                         device=DEV)
+        check(all(bits_equal(torch, a.data.to(b.data.device), b.data)
+                  and torch.equal(a.valid_mask().to(b.data.device),
+                                  b.valid_mask())
+                  for a, b in zip(got_g.columns, want_g.columns)),
+              "the stage's groupby over the wire == in process, bit-exact")
+        del got_g, want_g, got_h, want_h, dev_table, host, local_blob
+        for h in (th, th2, hh, hth, gh, *blobs):
+            c.release(h)
+        check(c.live_count() == 0, "the wire half released every handle")
+        out["wire"] = wire
+
+        # -- 3. engine q5 as one PLAN_EXECUTE -----------------------------
+        q5 = {}
+        plan = q5_engine_plan(root, *Q5_DATES)
+        q5_names = ["s_store_name", "sales", "profit", "n"]
+        opt = pe.optimize(plan)
+        local, q5["in_process_cold_s"] = wall(
+            torch, lambda: pe.execute(opt, device=DEV))
+        want = engine_result(local)
+
+        def over_wire(p):
+            """One PLAN_EXECUTE of ``p``: the exported table and the wall
+            up to the server's work done on the card."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hs = c.execute_plan(p)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            got = c.export_table(hs[0])
+            c.release(hs[0])
+            return got, s
+
+        for rep in ("cold", "warm"):
+            if rep == "warm":
+                tracing.reset_counters("kernel.")
+            got, q5[f"{rep}_s"] = over_wire(plan)
+            if rep == "warm":
+                q5["launches"] = {k: v for k, v in
+                                  kernel_launches(tracing).items()
+                                  if k in DECODE_KERNELS}
+            check(q5_matches(engine_result(_named(got, q5_names)), want),
+                  f"q5 over PLAN_EXECUTE ({rep}) == in-process execute")
+        check(all(v > 0 for v in q5["launches"].values()),
+              "K3/W1/W2 launched in the server for q5")
+        # the bridge's own overhead: paired warm runs, in process then over
+        # the wire, so a drift of the card or the host hits both alike
+        s_local, s_wire = [], []
+        for _ in range(OVERHEAD_REPS):
+            s_local.append(wall(torch, lambda: pe.execute(opt,
+                                                          device=DEV))[1])
+            got, s = over_wire(plan)
+            s_wire.append(s)
+            check(q5_matches(engine_result(_named(got, q5_names)), want),
+                  "q5 over PLAN_EXECUTE (paired run) == in-process execute")
+        diffs = [w - x for w, x in zip(s_wire, s_local)]
+        q5["in_process_s"] = _percentile(s_local, 50)
+        q5["wire_s"] = _percentile(s_wire, 50)
+        q5["in_process_s_range"] = [min(s_local), max(s_local)]
+        q5["wire_s_range"] = [min(s_wire), max(s_wire)]
+        q5["bridge_overhead_s"] = _percentile(diffs, 50)
+        q5["bridge_overhead_s_range"] = [min(diffs), max(diffs)]
+        # a PLAN_EXECUTE the result cache serves: deserialize, verify, the
+        # files' versions, the lookup and the reply, with no execution
+        hits = []
+        with settings(result_cache=8):
+            c.release(c.execute_plan(plan)[0])
+            for _ in range(CACHE_HIT_REPS):
+                t0 = time.perf_counter()
+                hs = c.execute_plan(plan)
+                hits.append(time.perf_counter() - t0)
+                c.release(hs[0])
+            check(c.metrics()["last_plan"].get("served_from_cache") is True,
+                  "the repeated q5 was served from the result cache")
+        q5["cache_hit_ms"] = {"p50": _percentile(hits, 50) * 1e3,
+                              "p95": _percentile(hits, 95) * 1e3}
+        out["q5"] = q5
+        # the wire half's K1/K2 and the plan half's K3/W1/W2, each from
+        # its warm run
+        out["launches"] = {**{k: wire_launches[k] for k in (
+            "interleave_planes", "deinterleave_wire")}, **q5["launches"]}
+        check(all(v > 0 for v in out["launches"].values()),
+              "every kernel launched in the bridge's warm runs")
+
+        # -- 4. serving ---------------------------------------------------
+        fpath = root / "aqe_fact.parquet"
+        scan_plan = pe.Aggregate(pe.Scan(fpath, chunk_bytes=16 << 20), ["u"],
+                                 [("v", "sum")], names=["s"])
+        point_plan = pe.Filter(pe.Scan(root / "store.parquet"),
+                               ("==", pe.col("s_store_sk"),
+                                pe.lit(N_STORES // 2)))
+        slo = f"5000,{point_plan.fingerprint()[:12]}={POINT_OBJECTIVE_MS}"
+        serving = {"point_clients": POINT_CLIENTS,
+                   "objective_ms": POINT_OBJECTIVE_MS}
+
+        def run_plan(p, lat=None, errs=None, client=None):
+            cc = client or BridgeClient(sock, device="cpu")
+            try:
+                t0 = time.perf_counter()
+                hs = cc.execute_plan(p)
+                if lat is not None:
+                    lat.append(time.perf_counter() - t0)
+                for h in hs:
+                    cc.release(h)
+            except Exception as e:  # noqa: BLE001 -- collected, checked
+                if errs is None:
+                    raise
+                errs.append(e)
+            finally:
+                if client is None:
+                    cc.close()
+
+        def serve_round(lat, errs, scan=True):
+            """Lookups from every client, a think time apart, for as long
+            as one scan runs (or for ``BASELINE_S`` with no scan); returns
+            the scan's wall."""
+            ts, scan_lat = [], []
+            if scan:
+                sc = BridgeClient(sock, device="cpu")
+                scan_t = threading.Thread(
+                    target=run_plan, args=(scan_plan, scan_lat, errs, sc))
+                scan_t.start()
+                while scan_t.is_alive() and not c.query_status(
+                        trace_id=sc.trace_id):
+                    time.sleep(0.001)
+                running = scan_t.is_alive
+            else:
+                stop = time.perf_counter() + BASELINE_S
+                running = lambda: time.perf_counter() < stop  # noqa: E731
+
+            def point(i):
+                cc = BridgeClient(sock, device="cpu")
+                time.sleep(THINK_S * i / POINT_CLIENTS)  # staggered starts
+                while running():
+                    run_plan(point_plan, lat, errs, cc)
+                    time.sleep(THINK_S)
+                cc.close()
+            ts = [threading.Thread(target=point, args=(i,))
+                  for i in range(POINT_CLIENTS)]
+            for t in ts:
+                t.start()
+            if scan:
+                ts.append(scan_t)
+            for t in ts:
+                t.join(timeout=600)
+            if scan:
+                sc.close()
+            check(not any(t.is_alive() for t in ts), "serving round ended")
+            return scan_lat[0] if scan_lat else None
+
+        # the lookup's answer, and its latency with the server otherwise
+        # idle: the yardstick of its objective
+        hs = c.execute_plan(point_plan)
+        got = c.export_table(hs[0])
+        c.release(hs[0])
+        local_pt = pe.execute(pe.optimize(point_plan), device=DEV)
+        check(got.columns[0].to_pylist() == local_pt.columns[0].to_pylist()
+              == [N_STORES // 2]
+              and got.columns[1].to_pylist()
+              == local_pt.columns[1].to_pylist(),
+              "the point lookup over the wire == in process")
+        alone = []
+        for _ in range(POINT_ALONE_REPS):
+            run_plan(point_plan, alone, None, c)
+        serving["point_alone_ms"] = {"p50": _percentile(alone, 50) * 1e3,
+                                     "p95": _percentile(alone, 95) * 1e3}
+        run_plan(scan_plan)  # warm the scan's segments
+        for mode, scan, kw in (
+                ("no_scan", False, {"sched": True}),
+                ("sched_on", True, {"sched": True}),
+                ("sched_off", True, {"sched": False}),
+                ("serial", True, {"sched": True, "max_sessions": 1})):
+            lat, errs, scans = [], [], []
+            with settings(slo_ms=slo, **kw):
+                r0 = SCHEDULER.stats()["rounds"]
+                t0 = time.perf_counter()
+                for _ in range(SERVING_ROUNDS if scan else 1):
+                    scans.append(serve_round(lat, errs, scan))
+                wall_s = time.perf_counter() - t0
+                rounds = SCHEDULER.stats()["rounds"] - r0
+            check(not errs, f"serving ({mode}): no error reply: {errs[:2]}")
+            check(len(lat) >= POINT_CLIENTS,
+                  f"serving ({mode}): every client's lookups ran")
+            lat_ms = np.asarray(lat) * 1e3
+            serving[mode] = {"p50_ms": _percentile(lat_ms, 50),
+                             "p95_ms": _percentile(lat_ms, 95),
+                             "max_ms": float(lat_ms.max()),
+                             "met_objective": float(np.mean(
+                                 lat_ms <= POINT_OBJECTIVE_MS)),
+                             "points": len(lat),
+                             "scan_s": [x for x in scans if x is not None],
+                             "wall_s": wall_s, "drr_rounds": rounds}
+
+        # max_sessions=2 with both slots held by sessions: four q5s queue,
+        # then run two at a time once the slots free
+        q0 = SCHEDULER.stats()
+        with settings(max_sessions=2):
+            holds = [SCHEDULER.admit(fingerprint="hold" * 4,
+                                     trace_id=f"hold{i}") for i in range(2)]
+            errs = []
+            ts = [threading.Thread(target=run_plan, args=(plan, None, errs))
+                  for _ in range(POINT_CLIENTS)]
+            for t in ts:
+                t.start()
+            time.sleep(0.3)
+            for h in holds:
+                h.release()
+            for t in ts:
+                t.join(timeout=600)
+        q1 = SCHEDULER.stats()
+        check(not errs, f"max_sessions=2: no error reply: {errs[:2]}")
+        serving["queued"] = q1["queued"] - q0["queued"]
+        check(serving["queued"] == POINT_CLIENTS,
+              "max_sessions=2 queued every q5 behind the held slots")
+
+        # a fingerprint already burning its SLO is shed at once when full
+        burn_plan = pe.Filter(pe.Scan(root / "store.parquet"),
+                              (">=", pe.col("s_store_sk"), pe.lit(0)))
+        prof_dir = root / "bridge_profiles"
+        with settings(profile_dir=str(prof_dir),
+                      slo_ms=f"{burn_plan.fingerprint()[:12]}=0.001"):
+            run_plan(burn_plan)  # one run, over its 1 us objective
+            check(blackbox.slo_burn_for(burn_plan.fingerprint()) == 1.0,
+                  "the burning fingerprint's burn rate is 1.0")
+            with settings(max_sessions=1):
+                shed = []
+                hold = SCHEDULER.admit(fingerprint="hold" * 4,
+                                       trace_id="hold")
+                s0 = SCHEDULER.stats()["shed"]
+                t0 = time.perf_counter()
+                run_plan(burn_plan, None, shed)
+                serving["shed_after_s"] = time.perf_counter() - t0
+                hold.release()
+        check(len(shed) == 1 and isinstance(shed[0], AdmissionRejectedError)
+              and "slo-burn" in str(shed[0]) and shed[0].trace_id,
+              f"the burning fingerprint was shed typed: {shed}")
+        serving["shed"] = SCHEDULER.stats()["shed"] - s0
+        check(serving["shed"] == 1, "one shed")
+
+        # OP_CANCEL of a running scan (each chunk's decode slowed 50 ms by
+        # the timeout seam, so the scan is in flight when the cancel lands)
+        base = c.live_count()
+        ca = BridgeClient(sock, device="cpu")
+        errs = []
+        with settings(faults="parquet.device_decode:*:timeout"):
+            faults.reset()
+            scan_t = threading.Thread(target=run_plan,
+                                      args=(scan_plan, None, errs, ca))
+            scan_t.start()
+            for _ in range(5000):
+                if c.query_status(trace_id=ca.trace_id):
+                    break
+                time.sleep(0.001)
+            serving["cancelled"] = c.cancel(ca.trace_id)
+            scan_t.join(timeout=600)
+        ca.close()
+        check(serving["cancelled"] == 1 and len(errs) == 1
+              and isinstance(errs[0], QueryCancelledError)
+              and errs[0].trace_id == ca.trace_id,
+              f"OP_CANCEL stopped the running scan: {errs}")
+        c.ping()
+        check(c.live_count() == base, "live_count back at its base")
+
+        # a one-shot device-decode fault recovers to the same answer
+        r0 = tracing.counter_value("engine.retries.parquet.device_decode")
+        with settings(faults="parquet.device_decode:1:io_error",
+                      retry_backoff_s=0.001):
+            faults.reset()
+            hs = c.execute_plan(plan)
+        got = engine_result(_named(c.export_table(hs[0]), q5_names))
+        c.release(hs[0])
+        serving["fault_retries"] = tracing.counter_value(
+            "engine.retries.parquet.device_decode") - r0
+        check(q5_matches(got, want) and serving["fault_retries"] == 1,
+              "a parquet.device_decode fault was retried to the same q5")
+
+        # a failing query leaves a bundle that names its trace
+        bb = root / "bridge_bundles"
+        with settings(blackbox_dir=str(bb)):
+            errs = []
+            run_plan(pe.Scan(root / "no_such.parquet"), None, errs, c)
+        check(len(errs) == 1 and isinstance(errs[0], TransientError)
+              and errs[0].bundle_path, f"the failing query: {errs}")
+        doc = blackbox.read_bundle(errs[0].bundle_path)
+        check(doc["trace_id"] == c.trace_id == errs[0].trace_id,
+              "the bundle names the client's trace id")
+        serving["bundles"] = len(blackbox.list_bundles(str(bb)))
+        out["serving"] = serving
+        m = c.metrics()
+        out["server"] = {"errors": m["errors"], "ops": m["ops"],
+                         "busy_s": m["busy_s"],
+                         "scheduler": {k: m["scheduler"][k] for k in (
+                             "admitted", "queued", "shed", "rounds")},
+                         "blackbox": m["blackbox"]}
+        # the deliberate errors only: shed, cancel, missing file
+        check(m["errors"] == 3, f"no unexpected error reply: {m['errors']}")
+        check(c.live_count() == 0, "every handle released")
+    finally:
+        if spawned is not None:
+            spawned.kill()
+            spawned.wait(timeout=60)
+        try:
+            c.shutdown_server()
+        finally:
+            st.join(timeout=60)
+            shutil.rmtree(sock_dir, ignore_errors=True)
+    check(not st.is_alive(), "the in-process server stopped")
+    fpath.unlink()
+    out["wall_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3511,6 +4059,7 @@ def main() -> int:
     ap.add_argument("--exchange-rows", type=int, default=1 << 24)
     ap.add_argument("--exchange-string-rows", type=int, default=1 << 22)
     ap.add_argument("--adaptive-rows", type=int, default=1 << 24)
+    ap.add_argument("--bridge-rows", type=int, default=1 << 24)
     args = ap.parse_args()
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
@@ -3611,6 +4160,11 @@ def main() -> int:
         adaptive = phase_adaptive(torch, root, tracing, args.adaptive_rows,
                                   args.seed)
         emit(adaptive)
+        torch.cuda.empty_cache()
+
+        bridge = phase_bridge(torch, root, tracing, args.bridge_rows,
+                              args.seed)
+        emit(bridge)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3624,6 +4178,7 @@ def main() -> int:
          "orc_launches": orc["launches"][name],
          "exchange_launches": exchange["launches"][name],
          "adaptive_launches": adaptive["launches"][name],
+         "bridge_launches": bridge["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
@@ -3641,6 +4196,7 @@ def main() -> int:
         "orc_launches": orc["launches"]["plain_gather"],
         "exchange_launches": exchange["launches"]["plain_gather"],
         "adaptive_launches": adaptive["launches"]["plain_gather"],
+        "bridge_launches": bridge["launches"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -3660,6 +4216,7 @@ def main() -> int:
             "orc_launches": orc["launches"][name],
             "exchange_launches": exchange["launches"][name],
             "adaptive_launches": adaptive["launches"][name],
+            "bridge_launches": bridge["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

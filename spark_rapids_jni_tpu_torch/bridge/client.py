@@ -1,0 +1,393 @@
+"""Pure-Python bridge client of the port, and ``spawn_server``.
+
+The port of ``spark_rapids_jni_tpu/bridge/client.py`` on the port's
+``Table``: the same wire exchanges as the JAX package's client and the C
+ABI (``src/main/cpp/src/tpubridge.cpp``), so a process that must not import
+the JAX package (the card's host) can drive a server.  Tables stage through
+a client-created shm segment in Arrow layout; everything after import is
+handle traffic.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import socket
+import struct
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+from .. import device as _device
+from ..columnar import Table
+from ..dtypes import DType, TypeId
+from ..utils.errors import BridgeTimeoutError, from_wire
+from . import protocol as P
+from . import shm as shmlib
+
+#: the directory that holds the package: a spawned server runs there, so
+#: ``python -m`` finds the package without an environment variable
+_PKG_PARENT = Path(__file__).resolve().parents[2]
+
+# process-global so concurrent clients (one per task thread) never mint
+# colliding shm names; next() is atomic under the GIL
+_IMP_COUNTER = itertools.count(1)
+
+
+def spawn_server(sock_path: str, device=_device.DEFAULT,
+                 settings: dict | None = None,
+                 timeout: float = 120.0) -> subprocess.Popen:
+    """Start ``python -m spark_rapids_jni_tpu_torch.bridge.server`` on
+    ``sock_path`` and return once it answers a ping.
+
+    ``device`` is the server's ``--device``; ``settings`` maps fields of
+    ``utils.config.config`` to values, passed as ``--set field=value``.
+    Raises when the process exits first (its return code in the message)
+    or does not answer within ``timeout`` seconds (it is killed)."""
+    cmd = [sys.executable, "-m", "spark_rapids_jni_tpu_torch.bridge.server",
+           "--socket", sock_path, "--device", str(device)]
+    for k, v in (settings or {}).items():
+        cmd += ["--set", f"{k}={v}"]
+    proc = subprocess.Popen(cmd, cwd=str(_PKG_PARENT))
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"bridge server died (rc={proc.returncode})")
+        if os.path.exists(sock_path):
+            try:
+                c = BridgeClient(sock_path, device="cpu")
+                c.ping()
+                c.close()
+                return proc
+            except (ConnectionError, OSError):
+                pass
+        time.sleep(0.05)
+    proc.kill()
+    proc.wait()
+    raise TimeoutError("bridge server did not come up")
+
+
+def _bridge_error(body: bytes) -> Exception:
+    """Exception for a STATUS_ERROR reply: a ``PlanVerificationError``
+    (code and node path intact) or the typed taxonomy error (kind,
+    retryable bit, trace id and bundle path intact); anything else a
+    flat RuntimeError."""
+    if body[:1] == b"{":
+        try:
+            doc = json.loads(body.decode())
+        except ValueError:
+            doc = None
+        if isinstance(doc, dict) and doc.get("error") == "plan_verification":
+            from ..engine.verify import PlanVerificationError
+            return PlanVerificationError.from_dict(doc)
+        if isinstance(doc, dict) and doc.get("error") == "taxonomy":
+            return from_wire(doc)
+    return RuntimeError(f"bridge error: {body.decode()}")
+
+
+class BridgeClient:
+    """One connection to a device server.  ``device`` is where exported
+    tables land (default ``"cuda"``); ``timeout`` the per-op socket
+    deadline (default ``config.bridge_timeout_s``; 0 or None: none)."""
+
+    def __init__(self, sock_path: str, timeout: float | None = None,
+                 trace_id: str | None = None, device=_device.DEFAULT):
+        from ..utils.blackbox import new_trace_id
+        from ..utils.config import config
+        if timeout is None:
+            timeout = config.bridge_timeout_s
+        self._timeout = timeout if timeout and timeout > 0 else None
+        self.device = _device.resolve(device)
+        # trace context (protocol v2): every frame carries this trace id
+        # plus a fresh per-op span id, so the server's spans, bundles and
+        # profiles join to this client
+        self.trace_id = trace_id or config.trace_id or new_trace_id()
+        self.last_span_id = ""
+        self._spans = itertools.count(1)
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self.sock.settimeout(self._timeout)
+        try:
+            self.sock.connect(sock_path)
+        except OSError:
+            self.sock.close()
+            raise
+        # every request/reply exchange
+        self.round_trips = 0
+
+    # -- plumbing ----------------------------------------------------------
+    def _call(self, opcode: int, payload: bytes = b"") -> bytes:
+        if self.sock is None:
+            # deliberately NOT a retryable type: resending on a client that
+            # already timed out would be exactly the desync a retry layer
+            # must never be invited into
+            raise RuntimeError(
+                "bridge client unusable: a previous op timed out and the "
+                "connection was closed (open a new BridgeClient)")
+        self.round_trips += 1
+        # client-side span: sequential within the trace, so the flight
+        # recorder's client events order without clock agreement
+        self.last_span_id = f"{next(self._spans):016x}"
+        # PLAN_EXECUTE runs as long as the query does: unbounded by
+        # design; config.query_timeout_s and OP_CANCEL bound it
+        # cooperatively.  Every other op keeps the per-op deadline.
+        self.sock.settimeout(None if opcode == P.OP_PLAN_EXECUTE
+                             else self._timeout)
+        from ..utils import blackbox
+        blackbox.record("bridge.call", trace=self.trace_id, op=opcode,
+                        span=self.last_span_id)
+        try:
+            P.send_msg(self.sock, opcode, payload,
+                       trace=(self.trace_id, self.last_span_id))
+            status, body = P.recv_msg(self.sock)
+        except (socket.timeout, P.FrameTimeoutError) as e:
+            # the server's late reply may still land on this socket; the
+            # next _call would read that stale frame as ITS reply.  Poison
+            # the client: close now, force an explicit reconnect before
+            # any retry.
+            self.close()
+            raise BridgeTimeoutError(
+                f"bridge op {opcode} exceeded the {self._timeout}s "
+                "socket deadline (config.bridge_timeout_s); connection "
+                "closed — reconnect before retrying") from e
+        if status != P.STATUS_OK:
+            raise _bridge_error(body)
+        return body
+
+    def ping(self) -> None:
+        if self._call(P.OP_PING) != b"pong":  # not an assert: must run under -O
+            raise RuntimeError("bridge server returned a bad ping reply")
+
+    def close(self) -> None:
+        if self.sock is not None:
+            self.sock.close()
+            self.sock = None
+
+    def shutdown_server(self) -> None:
+        self._call(P.OP_SHUTDOWN)
+        self.close()
+
+    def cancel(self, trace_id: str | None = None) -> int:
+        """Flip the cancellation token of in-flight PLAN_EXECUTEs on the
+        server; returns how many were cancelled.  ``trace_id`` cancels
+        only the queries bound to that trace (the concurrent-sessions
+        primitive); None keeps the v1 cancel-everything behavior.  Issue
+        this from a SECOND connection — a connection blocked awaiting its
+        own PLAN_EXECUTE reply cannot also carry the cancel."""
+        payload = trace_id.encode() if trace_id else b""
+        (n,) = struct.unpack("<I", self._call(P.OP_CANCEL, payload))
+        return n
+
+    # -- handle ops ----------------------------------------------------------
+    def import_table(self, table: Table) -> int:
+        """Stage a table through shm; returns its device handle."""
+        name = f"tpub-imp-{os.getpid()}-{next(_IMP_COUNTER)}"
+        seg = shmlib.SegmentWriter(name)
+        descs = [shmlib.write_column(seg, c) for c in table.columns]
+        m = seg.finish()
+        try:
+            nameb = name.encode()
+            payload = (struct.pack("<I", len(nameb)) + nameb +
+                       struct.pack("<I", table.num_columns) + b"".join(descs))
+            (h,) = struct.unpack("<Q", self._call(P.OP_IMPORT_TABLE, payload))
+        finally:
+            m.close()
+            shmlib.unlink(name)
+        return h
+
+    def convert_to_rows(self, table_handle: int) -> list[int]:
+        body = self._call(P.OP_TO_ROWS, struct.pack("<Q", table_handle))
+        (nb,) = struct.unpack_from("<I", body)
+        return list(struct.unpack_from(f"<{nb}Q", body, 4))
+
+    def convert_from_rows(self, col_handle: int,
+                          schema: list[DType]) -> int:
+        payload = struct.pack("<QI", col_handle, len(schema)) + b"".join(
+            struct.pack("<ii", int(dt.id), dt.scale) for dt in schema)
+        (h,) = struct.unpack("<Q", self._call(P.OP_FROM_ROWS, payload))
+        return h
+
+    def export_table(self, table_handle: int) -> Table:
+        """The table behind a handle, on this client's device."""
+        body = self._call(P.OP_EXPORT_TABLE, struct.pack("<Q", table_handle))
+        (nlen,) = struct.unpack_from("<I", body)
+        name = body[4:4 + nlen].decode()
+        _shm_size, ncols = struct.unpack_from("<QI", body, 4 + nlen)
+        m = shmlib.attach(name)
+        try:
+            cols, _ = shmlib.read_columns(body, 4 + nlen + 12, ncols, m,
+                                          self.device)
+        finally:
+            m.close()
+            self.free_shm(name)
+        return Table(cols)
+
+    def export_rows_column(self, col_handle: int):
+        """Fetch a LIST<INT8> blob column -> (int32 offsets, u8 bytes)."""
+        body = self._call(P.OP_EXPORT_COLUMN, struct.pack("<Q", col_handle))
+        (nlen,) = struct.unpack_from("<I", body)
+        name = body[4:4 + nlen].decode()
+        _size, _n, ooff, olen, doff, dlen = struct.unpack_from(
+            "<QqQQQQ", body, 4 + nlen)
+        m = shmlib.attach(name)
+        try:
+            offs = np.frombuffer(m, np.int32, olen // 4, ooff).copy()
+            data = np.frombuffer(m, np.uint8, dlen, doff).copy()
+        finally:
+            m.close()
+            self.free_shm(name)
+        return offs, data
+
+    def table_meta(self, table_handle: int):
+        body = self._call(P.OP_TABLE_META, struct.pack("<Q", table_handle))
+        ncols, nrows = struct.unpack_from("<Iq", body)
+        schema = []
+        off = 12
+        for _ in range(ncols):
+            tid, scale = struct.unpack_from("<ii", body, off)
+            off += 8
+            schema.append(DType(TypeId(tid), scale))
+        return nrows, schema
+
+    def release(self, handle: int) -> None:
+        self._call(P.OP_RELEASE, struct.pack("<Q", handle))
+
+    def metrics(self, prefix: str = "") -> dict:
+        """Server observability snapshot (per-op counts, errors, busy time,
+        live handles, open shm exports) — SURVEY §5 metrics role.
+
+        ``prefix`` narrows the counter/histogram/gauge blocks server-side
+        (e.g. ``"engine.exchange"``); empty returns everything, matching
+        the pre-prefix wire behaviour."""
+        return json.loads(self._call(P.OP_METRICS, prefix.encode()))
+
+    def query_status(self, trace_id: str | None = None) -> list:
+        """Live progress of in-flight queries on the server (chunks
+        done/total, rows, bytes, ETA) — every query, or only those bound
+        to ``trace_id``.  Like :meth:`cancel`, issue this from a SECOND
+        connection — a connection blocked awaiting its own PLAN_EXECUTE
+        reply cannot also carry the poll."""
+        payload = trace_id.encode() if trace_id else b""
+        return json.loads(
+            self._call(P.OP_QUERY_STATUS, payload))["queries"]
+
+    def live_count(self) -> int:
+        (n,) = struct.unpack("<I", self._call(P.OP_LIVE_COUNT))
+        return n
+
+    def free_shm(self, name: str) -> None:
+        nameb = name.encode()
+        self._call(P.OP_FREE_SHM, struct.pack("<I", len(nameb)) + nameb)
+
+    # -- engine ops (handle in, handle out) --------------------------------
+
+    def get_column(self, table_handle: int, idx: int) -> int:
+        (h,) = struct.unpack("<Q", self._call(
+            P.OP_GET_COLUMN, struct.pack("<QI", table_handle, idx)))
+        return h
+
+    def make_table(self, col_handles: list[int]) -> int:
+        body = struct.pack("<I", len(col_handles)) + b"".join(
+            struct.pack("<Q", h) for h in col_handles)
+        (h,) = struct.unpack("<Q", self._call(P.OP_MAKE_TABLE, body))
+        return h
+
+    def hash(self, table_handle: int, kind: str = "murmur3",
+             seed: int = 42) -> int:
+        k = {"murmur3": 0, "xxhash64": 1}[kind]
+        (h,) = struct.unpack("<Q", self._call(
+            P.OP_HASH, struct.pack("<QBi", table_handle, k, seed)))
+        return h
+
+    def cast_strings(self, col_handle: int, dtype: DType,
+                     ansi: bool = False, strip: bool = False) -> int:
+        (h,) = struct.unpack("<Q", self._call(
+            P.OP_CAST_STRINGS,
+            struct.pack("<QiiBB", col_handle, int(dtype.id), dtype.scale,
+                        int(ansi), int(strip))))
+        return h
+
+    def groupby(self, table_handle: int, key_idx: list[int],
+                aggs: list[tuple[int, int]]) -> int:
+        """``aggs``: (column index, P.AGG_* code) pairs."""
+        body = struct.pack("<QI", table_handle, len(key_idx))
+        body += b"".join(struct.pack("<I", i) for i in key_idx)
+        body += struct.pack("<I", len(aggs))
+        body += b"".join(struct.pack("<IB", ci, ac) for ci, ac in aggs)
+        (h,) = struct.unpack("<Q", self._call(P.OP_GROUPBY, body))
+        return h
+
+    def join(self, left_handle: int, right_handle: int, left_keys: list[int],
+             right_keys: list[int], how: str = "inner") -> int:
+        code = {v: k for k, v in P.JOIN_NAMES.items()}[how]
+        body = struct.pack("<QQB", left_handle, right_handle, code)
+        body += struct.pack("<I", len(left_keys))
+        body += b"".join(struct.pack("<I", i) for i in left_keys)
+        body += b"".join(struct.pack("<I", i) for i in right_keys)
+        (h,) = struct.unpack("<Q", self._call(P.OP_JOIN, body))
+        return h
+
+    def sort(self, table_handle: int, keys: list[tuple]) -> int:
+        """``keys``: (column index, ascending, nulls_first|None) tuples."""
+        body = struct.pack("<QI", table_handle, len(keys))
+        for ci, asc, nf in keys:
+            body += struct.pack("<IBB", ci, int(asc),
+                                2 if nf is None else int(nf))
+        (h,) = struct.unpack("<Q", self._call(P.OP_SORT, body))
+        return h
+
+    def filter(self, table_handle: int, mask_col_handle: int) -> int:
+        (h,) = struct.unpack("<Q", self._call(
+            P.OP_FILTER, struct.pack("<QQ", table_handle, mask_col_handle)))
+        return h
+
+    def concat(self, table_handles: list[int]) -> int:
+        body = struct.pack("<I", len(table_handles)) + b"".join(
+            struct.pack("<Q", h) for h in table_handles)
+        (h,) = struct.unpack("<Q", self._call(P.OP_CONCAT, body))
+        return h
+
+    def read_parquet(self, path: str, columns: list[str] | None = None) -> int:
+        pb = path.encode()
+        body = struct.pack("<I", len(pb)) + pb
+        cols = columns or []
+        body += struct.pack("<I", len(cols))
+        for c in cols:
+            cb = c.encode()
+            body += struct.pack("<I", len(cb)) + cb
+        (h,) = struct.unpack("<Q", self._call(P.OP_READ_PARQUET, body))
+        return h
+
+    def serving_stats(self) -> dict:
+        """Multi-tenant serving snapshot: the scheduler block (live /
+        admitted / queued / shed sessions, fair-share rounds) and the
+        result-set cache block (hits / misses / evictions) from
+        OP_METRICS.  Empty dicts before the server's first PLAN_EXECUTE
+        (the engine — and with it the scheduler — loads lazily)."""
+        m = self.metrics()
+        return {"scheduler": m.get("scheduler", {}),
+                "result_cache": m.get("result_cache", {})}
+
+    def execute_plan(self, plan) -> list[int]:
+        """Run a whole engine plan in ONE round-trip; returns table handles.
+
+        ``plan`` is an ``engine.PlanNode`` or already-serialized plan bytes.
+        The server optimizes through its plan cache, executes, and replies
+        with the result handle(s) — versus one ``_call`` per op for the
+        same pipeline built from read_parquet/join/groupby/sort.
+
+        Under load the server may refuse to run the plan: a saturated
+        scheduler raises ``AdmissionRejectedError`` here (kind
+        ``resource``, deliberately NOT retryable — the client decides when
+        to come back), carrying the server-side ``trace_id`` and
+        post-mortem ``bundle_path`` like every other typed failure.
+        """
+        blob = bytes(plan) if isinstance(plan, (bytes, bytearray)) \
+            else plan.serialize()
+        body = self._call(P.OP_PLAN_EXECUTE,
+                          struct.pack("<I", len(blob)) + blob)
+        (n,) = struct.unpack_from("<I", body)
+        return list(struct.unpack_from(f"<{n}Q", body, 4))

@@ -24,7 +24,9 @@ fused stage (``segment.FusedStage``), and ``config.aqe`` turns on adaptive
 execution (``adaptive``: the broadcast flip, the hot-key skew split and
 profile-warmed planning).
 
-Not ported yet: the multi-tenant scheduler and sessions.
+``scheduler.SCHEDULER`` admits the bridge's concurrent ``PLAN_EXECUTE``
+sessions and interleaves their chunks; ``execute(session=...)`` runs a plan
+as one of them.
 """
 
 from .plan import (  # noqa: F401
@@ -60,6 +62,11 @@ from .cache import (  # noqa: F401
     PlanCache,
     ResultCache,
     data_version,
+)
+from .scheduler import (  # noqa: F401
+    SCHEDULER,
+    QuerySession,
+    Scheduler,
 )
 from .explain import ExplainReport, explain_analyze  # noqa: F401
 from .segment import (  # noqa: F401

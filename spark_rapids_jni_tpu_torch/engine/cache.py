@@ -43,10 +43,10 @@ class CompiledPlan:
         self.executions = 0
 
     def execute(self, stats: Optional[dict] = None, cancel=None,
-                device=_device.DEFAULT):
+                device=_device.DEFAULT, session=None):
         self.executions += 1
         return execute(self.optimized, stats=stats, cancel=cancel,
-                       device=device)
+                       device=device, session=session)
 
 
 class PlanCache:
@@ -231,8 +231,8 @@ class ResultCache:
     use.
 
     ``get``/``put`` are split (unlike the builder-callback caches)
-    because the execution between them runs under the caller's cancel
-    token and stats plumbing; a concurrent-miss race on ``put``
+    because the execution between them runs under the caller's session,
+    cancel token and stats plumbing; a concurrent-miss race on ``put``
     keeps the first-stored result.
     """
 

@@ -36,7 +36,14 @@ fused stage (``segment.FusedStage``, ``_try_fused_stage``), and with
 exchanges: the broadcast flip, the hot-key skew split with its
 post-exchange combine, and the counts probe that routes a hot fused stage
 to the host path.  Exchanges emit spans, flows and per-shard lanes on the
-event timeline (``config.timeline``).  Not ported: scheduled sessions.
+event timeline (``config.timeline``).  ``execute(session=...)`` runs the
+plan as a scheduled tenant (``engine/scheduler.py``): chunk boundaries are
+fair-share gates, chunk bytes charge the session's memory budget, the
+spilled exchange sizes its passes within that budget, and the OOM ladder
+retries a rung once for a session within its budget before degrading.
+Every execute runs under a flight-recorder trace scope
+(``utils/blackbox.py``), and a failed one leaves a post-mortem bundle when
+``config.blackbox_dir`` is set.
 """
 
 from __future__ import annotations
@@ -389,6 +396,15 @@ def _exec_aggregate(node: Aggregate, memo: dict, stats: dict,
         _precompute_independent(node.child, scan, memo, stats, ctx)
         snap = {k: (list(v) if isinstance(v, list) else v)
                 for k, v in stats.items()}
+
+        def restore():
+            # drop a failed attempt's partial evidence so the re-run's
+            # accounting isn't double-counted; lists re-copied so a second
+            # restore starts from the clean snapshot too
+            stats.clear()
+            stats.update({k: (list(v) if isinstance(v, list) else v)
+                          for k, v in snap.items()})
+
         try:
             return _exec_streamed(node, scan, memo, stats, ctx)
         except Exception as e:
@@ -397,10 +413,17 @@ def _exec_aggregate(node: Aggregate, memo: dict, stats: dict,
             # with a smaller device footprint
             if not ctx.recovery.can_degrade(e):
                 raise
-            # drop the failed attempt's partial evidence so the re-run's
-            # accounting isn't double-counted
-            stats.clear()
-            stats.update(snap)
+            restore()
+            if ctx.recovery.oom_retry_first("stream.fused", e):
+                # a session within its own budget: the pressure was a
+                # neighbour's, so one same-rung retry before degrading
+                try:
+                    return _exec_streamed(node, scan, memo, stats, ctx)
+                except Exception as e2:
+                    if not ctx.recovery.can_degrade(e2):
+                        raise
+                    restore()
+                    e = e2
             ctx.recovery.degrade("stream-interpreted", e, stats)
             return _exec_streamed(node, scan, memo, stats, ctx,
                                   force_interp=True)
@@ -495,6 +518,9 @@ def _try_fused_stage(node: Aggregate, memo: dict, stats: dict,
     # the same events whether the exchange ran in the pass or on the host
     stats["exchanges"] += 1
     stats["nodes"] += 2  # the bypassed Exchange + partial Aggregate
+    from ..utils import blackbox
+    blackbox.record("exchange", kind=ex.kind,
+                    rows=int(rows_mat.sum()), in_program=True)
     wire = int(info["wire_bytes"])
     metrics.count("engine.exchange.shuffles")
     metrics.count("engine.exchange.wire_bytes", wire)
@@ -565,6 +591,8 @@ def _exec_exchange(node: Exchange, memo: dict, stats: dict,
     # counted before any early-out so the executed count equals the static
     # verify.plan_exchanges census
     stats["exchanges"] += 1
+    from ..utils import blackbox
+    blackbox.record("exchange", kind=node.kind, rows=child.num_rows)
     if node.kind == "broadcast":
         return _broadcast_exchange(node, child, ctx)
     if getattr(node, "_aqe_flip", False):
@@ -825,8 +853,13 @@ def _spilled_exchange(node: Exchange, table: Table, ctx: _ExecCtx) -> Table:
         table, plan = explode_strings(table)
         key_specs = sh.key_specs_for(table, keys, plan)
     # half the table's footprint as the pass budget: the degraded path runs
-    # because the full-capacity dispatch just ran out of memory
+    # because the full-capacity dispatch just ran out of memory.  A session
+    # budget clamps further: one tenant's spill ladder must not size its
+    # passes as if it owned the whole device
     budget = max(1 << 20, table_nbytes(table) // 2)
+    srem = ctx.recovery.session_budget_remaining()
+    if srem is not None:
+        budget = max(1 << 20, min(budget, srem))
     metrics.count("engine.exchange.spilled_reroutes")
     result = shuffle_table_spilled(table, make_mesh(ns, device=ctx.device),
                                    keys, hbm_budget_bytes=budget,
@@ -1339,7 +1372,7 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
             fused: Optional[bool] = None,
             prefetch: Optional[int] = None,
             cancel: Optional[CancelToken] = None,
-            device=_device.DEFAULT) -> Table:
+            device=_device.DEFAULT, session=None) -> Table:
     """Run ``plan`` on ``device``; returns the result Table there.
 
     ``stats`` (optional dict) is updated in place with execution evidence:
@@ -1353,9 +1386,16 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
     execution cooperatively cancellable at chunk boundaries; with no token,
     ``config.query_timeout_s > 0`` installs a deadline-only token.
 
+    ``session`` (engine.scheduler.QuerySession, optional) makes the
+    execution a scheduled tenant: chunk boundaries become fair-share
+    scheduling points, chunk bytes charge the session's memory budget, and
+    the OOM ladder consults that budget before degrading
+    (engine/recovery.py ``oom_retry_first``).
+
     Failures are classified (utils.errors) on the way out: the query
-    summary carries an ``outcome`` record and ``engine.errors.<kind>``
-    ticks.
+    summary carries an ``outcome`` record, ``engine.errors.<kind>`` ticks,
+    and a post-mortem bundle is written (``config.blackbox_dir``), its path
+    and the trace id stamped on the exception.
     """
     from ..utils.config import config
     dev = _device.resolve(device)
@@ -1370,8 +1410,8 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
                    fuse=config.fuse if fused is None else bool(fused),
                    prefetch=config.prefetch if prefetch is None
                    else int(prefetch),
-                   recovery=RecoveryPolicy(cancel=cancel), device=dev,
-                   stats=stats)
+                   recovery=RecoveryPolicy(cancel=cancel, session=session),
+                   device=dev, stats=stats)
     if config.aqe or config.fuse_exchange:
         # a cached optimized plan is re-executed object-identical: strip
         # the previous run's runtime ledger entries before this run
@@ -1379,8 +1419,16 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
         from . import adaptive
         adaptive.reset(plan)
     # one QueryMetrics per top-level execute (nested executes attribute
-    # into the enclosing query); config.metrics off skips it entirely
-    with metrics.maybe_query(f"execute:{node_label(plan)}") as qm:
+    # into the enclosing query); config.metrics off skips it entirely.  The
+    # flight recorder's trace scope wraps it, re-entrant the same way: it
+    # binds (or mints) the end-to-end trace id, and stays on with the
+    # metrics layer off
+    from ..utils import blackbox
+    with blackbox.query_scope(label=f"execute:{node_label(plan)}") as scope, \
+            metrics.maybe_query(f"execute:{node_label(plan)}") as qm:
+        tq = qm if qm is not None else metrics.current()
+        if tq is not None and not tq.trace_id:
+            tq.trace_id = scope.trace_id
         if config.profile_dir:
             # the profile store keys cross-run diffs by plan fingerprint;
             # stamp whichever query covers this execute (the one just
@@ -1402,6 +1450,10 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
             oq = qm if qm is not None else metrics.current()
             if oq is not None:
                 oq.set_outcome("error", kind=kind, error=str(e))
+            # the outcome is stamped, so the bundle's query summary says
+            # how it died; the exception carries trace_id and bundle_path
+            # out to the bridge
+            blackbox.post_mortem(f"engine.execute:{kind}", exc=e, qm=oq)
             raise
         oq = qm if qm is not None else metrics.current()
         if oq is not None:

@@ -1,30 +1,34 @@
-"""Query-level recovery policy: degradation ladder and cancellation.
+"""Query-level recovery policy: retry, degradation ladder, cancellation,
+and the query's scheduling session.
 
 The port of ``spark_rapids_jni_tpu/engine/recovery.py``.  The executor
 threads one :class:`RecoveryPolicy` through every streaming loop.  It owns
-two behaviours, each bounded and each counted (transient failures retry at
-their own sites through ``utils.errors.retry_call``):
+three behaviours, each bounded and each counted:
 
-1. **Degradation ladder**: resource exhaustion (``torch.cuda.
+1. **Retry**: transient failures (kind ``transient`` in utils/errors.py)
+   retry per site with exponential backoff and deterministic jitter, at
+   most ``config.retry_max`` times.  Counted as ``engine.retries`` /
+   ``engine.retries.<site>``.
+2. **Degradation ladder**: resource exhaustion (``torch.cuda.
    OutOfMemoryError`` and the other allocation failures ``classify`` maps
-   to ``resource``) is never blind-retried; the fused streaming aggregate
-   steps down to the interpreted per-chunk path instead, counted as
-   ``engine.degraded`` / ``engine.degraded.<step>`` and recorded on the
-   query's outcome.
-2. **Cancellation**: a ``CancelToken`` (``config.query_timeout_s`` or the
-   caller's) checked at chunk boundaries and polled by the prefetch
-   producer.
+   to ``resource``, injected ones included) is never blind-retried; the
+   executor steps down instead, each rung counted as ``engine.degraded`` /
+   ``engine.degraded.<step>``, recorded on the query's outcome and in the
+   flight recorder, with a post-mortem bundle:
+   - exchange: full capacity -> halved chunk capacity -> spilled shuffle
+     (``parallel/spill.py``) -> passthrough;
+   - fused streaming aggregate: segments -> the interpreted per-chunk path.
+3. **Cancellation**: a ``CancelToken`` (``config.query_timeout_s`` or the
+   bridge's ``OP_CANCEL``) checked at chunk boundaries and polled by the
+   prefetch producer.
 
-3. **Retry**: ``retry`` runs an exchange dispatch under
-   ``utils.errors.retry_call`` (transient failures only, bounded, backed
-   off).
-
-The JAX package's session scheduling (``session.gate``, the session memory
-budget and the neighbour-pressure retry) and its flight-recorder calls are
-not ported yet (ROADMAP queue 1 item 5): a policy here has no session, so
-``charge`` is a no-op and ``oom_retry_first`` always answers no, so an
-out-of-memory error (``torch.cuda.OutOfMemoryError``) steps the ladder
-down at once.
+With a :class:`~.scheduler.QuerySession` attached (the bridge's
+``PLAN_EXECUTE``), every chunk boundary is also a fair-share scheduling
+point (``session.gate()``), chunk bytes charge the session's budget, and
+the OOM ladder consults that budget first: a session within its own budget
+that runs out of memory is feeling a neighbour's pressure and retries the
+same rung once (``oom_retry_first``) instead of being degraded for
+someone else's allocation.
 """
 
 from __future__ import annotations
@@ -38,46 +42,105 @@ from ..utils.errors import (CancelToken, QueryCancelledError,
                             QueryTimeoutError, classify,
                             is_resource_exhausted, retry_call)
 
+_log = logging.getLogger(__name__)
+
 __all__ = ["RecoveryPolicy", "CancelToken", "QueryCancelledError",
            "QueryTimeoutError", "query_cancel_token"]
 
 
 class RecoveryPolicy:
-    """Per-query degradation policy + cancellation token carrier."""
+    """Per-query retry/degradation policy + cancellation token carrier."""
 
-    __slots__ = ("cancel", "degradations")
+    __slots__ = ("cancel", "session", "degradations", "_oom_retries")
 
-    def __init__(self, cancel: Optional[CancelToken] = None):
+    def __init__(self, cancel: Optional[CancelToken] = None, session=None):
         self.cancel = cancel
+        self.session = session
         self.degradations: list[dict] = []
+        self._oom_retries: set[str] = set()
+
+    # -- retry ---------------------------------------------------------------
 
     def retry(self, site: str, fn: Callable):
-        """Run ``fn``, retrying transient failures (bounded, backed off)."""
+        """Run ``fn``, retrying transient failures (bounded, backed off by
+        ``config.retry_max`` and ``config.retry_backoff_s``)."""
         return retry_call(fn, site, cancel=self.cancel)
 
+    # -- cancellation --------------------------------------------------------
+
     def checkpoint(self) -> None:
-        """Chunk-boundary cancellation/deadline check."""
+        """Chunk-boundary cancellation/deadline check — and, with a
+        session attached, the fair-share scheduling point (no-op when
+        untokened and unscheduled)."""
         if self.cancel is not None:
             self.cancel.check()
+        if self.session is not None:
+            self.session.gate()
+
+    # -- session memory budget -----------------------------------------------
 
     def charge(self, nbytes: int) -> None:
-        """Charge a chunk's bytes against the session budget: no sessions
-        in the port yet, so nothing to charge."""
+        """Charge a chunk's bytes against the session budget (no-op
+        without a session) — called from the executor's existing
+        ``table_nbytes`` sites, so tracking adds no device syncs."""
+        if self.session is not None:
+            self.session.charge(nbytes)
+
+    def session_budget_remaining(self) -> Optional[int]:
+        """Remaining session budget in bytes; ``None`` = unbudgeted."""
+        if self.session is None:
+            return None
+        return self.session.budget_remaining()
+
+    # -- degradation ---------------------------------------------------------
 
     def can_degrade(self, exc: BaseException) -> bool:
-        """Only resource exhaustion walks the ladder."""
+        """Only resource exhaustion walks the ladder; transient failures
+        are the retry layer's job and cancellation/fatal propagate."""
         return is_resource_exhausted(exc)
 
     def oom_retry_first(self, site: str, exc: BaseException) -> bool:
-        """Should this out-of-memory error retry the same rung once before
-        degrading?  Only a query of a session still within its own budget
-        earns that (the pressure was a neighbour's); the port has no
-        sessions yet, so it always degrades at once."""
-        return False
+        """Should this OOM retry the SAME rung once before degrading?
+
+        The pre-concurrency ladder consulted only the global memory
+        picture, so ANY resource exhaustion stepped the query down —
+        even when the allocation pressure came from a neighboring
+        session's transient spike.  With a session budget attached the
+        call is better informed: a session still WITHIN its own budget
+        did not earn this OOM, so it deserves one same-rung retry after
+        the neighbor's chunk retires (counted as
+        ``engine.sched.neighbor_pressure``).  A session over its budget
+        — or an unbudgeted/unscheduled query — degrades immediately,
+        exactly the old behavior.  One retry per site per query: if the
+        pressure persists, the ladder proceeds."""
+        if self.session is None or not is_resource_exhausted(exc):
+            return False
+        if self.session.over_budget() or self.session.budget_bytes <= 0:
+            return False
+        if site in self._oom_retries:
+            return False
+        self._oom_retries.add(site)
+        metrics.count("engine.sched.neighbor_pressure")
+        from ..utils import blackbox
+        blackbox.record("neighbor_pressure", site=site,
+                        trace_id=self.session.trace_id,
+                        peak_chunk_bytes=self.session.peak_chunk_bytes,
+                        budget_bytes=self.session.budget_bytes)
+        _log.warning(
+            "OOM at %s within session budget (%d/%d peak bytes): "
+            "retrying same rung once before degrading", site,
+            self.session.peak_chunk_bytes, self.session.budget_bytes)
+        return True
 
     def degrade(self, step: str, exc: BaseException,
                 stats: Optional[dict] = None) -> None:
-        """Record one ladder step: count, log, stamp the query outcome."""
+        """Record one ladder step: count, log, stamp query outcome.
+
+        Also feeds the flight recorder and writes a post-mortem bundle
+        (utils/blackbox.py): a query that gave up capacity is a serving
+        incident worth a durable record even when it ultimately succeeds.
+        Bundle dedup is per query execution, so a degradation followed by
+        more rungs — or the final error — still yields exactly one."""
         kind, _ = classify(exc)
         metrics.count("engine.degraded")
         metrics.count(f"engine.degraded.{step}")
@@ -88,8 +151,11 @@ class RecoveryPolicy:
         qm = metrics.current()
         if qm is not None:
             qm.degrade(step, kind)
-        logging.getLogger(__name__).warning(
-            "degraded (%s) after %s: %s", step, kind, exc)
+        from ..utils import blackbox
+        blackbox.record("degrade", step=step, kind=kind,
+                        msg=str(exc)[:200])
+        blackbox.post_mortem(f"degrade:{step}", qm=qm)
+        _log.warning("degraded (%s) after %s: %s", step, kind, exc)
 
 
 def query_cancel_token() -> Optional[CancelToken]:

@@ -394,9 +394,12 @@ try:
     import pyarrow as _pa
     _SNAPPY_C = _pa.Codec("snappy")  # compressor (decoder lives in io.snappy)
     _ZSTD_C = _pa.Codec("zstd")
+    # the system allocator, as io/parquet.py's codec uses it
+    _ARROW_POOL = _pa.system_memory_pool()
 except Exception:  # a host without pyarrow: none and zlib only
     _SNAPPY_C = None
     _ZSTD_C = None
+    _ARROW_POOL = None
 
 
 def _compress_stream(raw: bytes, kind: int, block: int) -> bytes:
@@ -409,9 +412,10 @@ def _compress_stream(raw: bytes, kind: int, block: int) -> bytes:
             comp = zlib.compressobj(6, zlib.DEFLATED, -15)
             cb = comp.compress(chunk) + comp.flush()
         elif kind == COMP_ZSTD:
-            cb = _ZSTD_C.compress(chunk).to_pybytes()
+            cb = _ZSTD_C.compress(chunk, memory_pool=_ARROW_POOL).to_pybytes()
         else:  # COMP_SNAPPY
-            cb = _SNAPPY_C.compress(chunk).to_pybytes()
+            cb = _SNAPPY_C.compress(chunk,
+                                    memory_pool=_ARROW_POOL).to_pybytes()
         if len(cb) < len(chunk):
             h = len(cb) << 1
             out += bytes([h & 0xFF, (h >> 8) & 0xFF, (h >> 16) & 0xFF])

@@ -40,7 +40,7 @@ import torch
 from .. import device as _device
 from .. import dtypes as dt
 from ..columnar import Column, Table
-from ..utils import timeline, tracing
+from ..utils import faults, timeline, tracing
 from ..utils.errors import retry_call
 from . import snappy
 from .thrift import decode_struct
@@ -75,12 +75,17 @@ _uvarint = snappy._uvarint  # one LEB128 decoder for the whole io package
 
 # Host snappy: pyarrow's codec where pyarrow is importable (it gives the
 # same bytes as io.snappy, faster); io.snappy otherwise, as on a host
-# without pyarrow.
+# without pyarrow.  Its output buffers come from the system allocator: in a
+# process that also holds torch, pyarrow's default (jemalloc) pool
+# segfaulted now and then inside ``decompress`` on a bridge server's
+# connection thread.
 try:
     import pyarrow as _pa
     _SNAPPY_NATIVE = _pa.Codec("snappy")
+    _ARROW_POOL = _pa.system_memory_pool()
 except Exception:
     _SNAPPY_NATIVE = None
+    _ARROW_POOL = None
 
 
 def _decompress(page: bytes, codec: int, uncompressed_size: int) -> bytes:
@@ -89,7 +94,8 @@ def _decompress(page: bytes, codec: int, uncompressed_size: int) -> bytes:
     if codec == CODEC_SNAPPY:
         if _SNAPPY_NATIVE is not None:
             out = _SNAPPY_NATIVE.decompress(
-                page, decompressed_size=uncompressed_size).to_pybytes()
+                page, decompressed_size=uncompressed_size,
+                memory_pool=_ARROW_POOL).to_pybytes()
         else:
             # literal-only pages (high-entropy / dict-encoded data) collapse
             # to slice copies; anything else hits the byte-exact decoder
@@ -106,7 +112,8 @@ def _decompress(page: bytes, codec: int, uncompressed_size: int) -> bytes:
     if codec == CODEC_ZSTD:
         import pyarrow as _pa
         out = _pa.Codec("zstd").decompress(
-            page, decompressed_size=uncompressed_size).to_pybytes()
+            page, decompressed_size=uncompressed_size,
+            memory_pool=_ARROW_POOL).to_pybytes()
         if len(out) != uncompressed_size:
             raise ValueError("zstd page size mismatch")
         return out
@@ -943,6 +950,7 @@ class DevicePageChunk:
         prefetch pipeline); the planes are views of the device buffer."""
         from .staging import to_device
         dev = _device.resolve(device)
+        faults.check("parquet.device_decode")
         tracing.count("io.device_decode.chunks")
         tracing.count("io.device_decode.link_bytes", int(self.comp_bytes))
         tracing.count("io.device_decode.uncompressed_bytes",
@@ -1214,12 +1222,15 @@ class ParquetChunkedReader:
         return (hi is not None and gmin > hi) or \
                (lo is not None and gmax < lo)
 
+    def _decode_group_checked(self, gi: int):
+        faults.check("parquet.chunk")
+        return self.file._decode_group(gi, self.columns)
+
     def _host_slices_group(self, gi: int):
         """Budget-bounded host-side slices of ONE row group."""
         # transient decode failures (flaky storage) retry per row group
-        hosts = retry_call(
-            lambda gi=gi: self.file._decode_group(gi, self.columns),
-            "parquet.chunk", cancel=self.cancel)
+        hosts = retry_call(lambda gi=gi: self._decode_group_checked(gi),
+                           "parquet.chunk", cancel=self.cancel)
         nrows = hosts[0].num_rows
         if nrows == 0:
             return
@@ -1243,6 +1254,19 @@ class ParquetChunkedReader:
             yield from self._host_slices_group(gi)
 
     def _chunks(self):
+        from ..utils.config import config
+        if not config.mem_debug:
+            yield from self._chunks_raw()
+            return
+        from ..utils.memory import MemoryScope
+        with MemoryScope("parquet_chunked", device=self.device) as scope:
+            for tbl in self._chunks_raw():
+                yield tbl
+                # refresh the working set's high-water mark at the batch
+                # boundary
+                scope.checkpoint()
+
+    def _chunks_raw(self):
         for sl in self._host_slices():
             tracing.count("io.parquet.chunks")
             tracing.count("io.parquet.chunk_rows", sl[0].num_rows)
@@ -1381,7 +1405,16 @@ def _prefetched(gen, depth: int, cancel=None):
             except queue.Full:
                 continue
 
+    # the producer re-enters the consumer's query, so its metrics, timeline
+    # events and flight-recorder records carry that query (and its trace)
+    from ..utils import metrics
+    qm = metrics.current()
+
     def producer():
+        with metrics.bind(qm):
+            produce()
+
+    def produce():
         try:
             it = iter(gen)
             n = 0
@@ -1391,6 +1424,7 @@ def _prefetched(gen, depth: int, cancel=None):
                 with timeline.span("io.parquet.produce_chunk",
                                    {"chunk": n}) if tl \
                         else contextlib.nullcontext():
+                    faults.check("parquet.prefetch")
                     try:
                         item = next(it)
                     except StopIteration:

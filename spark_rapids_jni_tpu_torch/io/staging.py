@@ -20,6 +20,7 @@ import torch
 from .. import device as _device
 from .. import dtypes as dt
 from ..columnar import Column, Table
+from ..utils import faults
 
 _ALIGN = 8  # every segment starts 8-byte aligned, so any view is legal
 
@@ -57,6 +58,7 @@ def stage_fixed_table(specs, padded: bool = False, device=_device.DEFAULT):
     fixed-width dtypes only.  One host pack, ONE device transfer, views on
     the device; returns the Table (``(Table, n_rows)`` when ``padded``).
     """
+    faults.check("staging.transfer")
     dev = _device.resolve(device)
     n_rows = len(specs[0][2]) if specs else 0
     rows = _bucket(n_rows)

@@ -36,7 +36,7 @@ from ..columnar import Column, Table
 from ..ops.hash import murmur3_hash, murmur3_hash_specs
 from ..ops.row_conversion import _build_planes, _from_planes, \
     fixed_width_layout
-from ..utils import metrics, timeline
+from ..utils import faults, metrics, timeline
 from ..utils.tracing import traced
 from .mesh import ROW_AXIS, Mesh, axis_size
 from .stringplane import (LEN_SUFFIX, WORD_SUFFIX, explode_strings,
@@ -336,6 +336,7 @@ def shuffle_chunks_pipelined(chunks, mesh: Mesh, keys: list,
     inflight: deque = deque()
     for item in chunks:
         tbl, live = item if isinstance(item, tuple) else (item, None)
+        faults.check("exchange.dispatch")
         inflight.append(shuffle_table_padded(
             tbl, mesh, list(keys), capacity=capacity, axis=axis, live=live,
             key_specs=key_specs, split=split))

@@ -26,7 +26,7 @@ from ..columnar import Column, Table
 from ..dtypes import NUMPY_OF_TORCH
 from ..ops.row_conversion import (_build_planes, _from_planes,
                                   fixed_width_layout)
-from ..utils import metrics
+from ..utils import faults, metrics
 from ..utils.errors import retry_call
 from ..utils.tracing import traced
 from .mesh import ROW_AXIS, Mesh, axis_size, pad_to_multiple
@@ -185,6 +185,7 @@ def shuffle_table_spilled(table: Table, mesh: Mesh, keys: list,
     def run_pass(p, window):
         # writes land at offsets fixed by the pre-pass ``written``, so a
         # transient failure replays the whole pass idempotently
+        faults.check("spill.write")
         planes_in, ok, ovf = exchange_planes(planes, src, dest, window, ns,
                                              cap_slice)
         if int(ovf):

@@ -36,11 +36,29 @@ time of use.
 | ``profile_cap``     | ``512``   | profile-store ring capacity (files) |
 | ``timeline``        | ``False`` | in-process event timeline (``utils/timeline.py``) |
 | ``timeline_cap``    | ``16384`` | timeline ring capacity (events) |
+| ``faults``          | ``""``    | fault-injection spec ``site:nth[:kind],...`` (``utils/faults.py``; empty = every seam a no-op) |
+| ``retry_max``       | ``3``     | retries of a transient failure a site (``engine/recovery.py``) |
+| ``retry_backoff_s`` | ``0.01``  | first retry backoff in seconds (doubles an attempt, deterministic jitter) |
+| ``bridge_timeout_s`` | ``60.0`` | per-op socket deadline of the bridge client and server (0 = none) |
+| ``mem_debug``       | ``False`` | ``MemoryScope`` reports at exit and the chunked reader's census checkpoints (``utils/memory.py``) |
+| ``blackbox``        | ``True``  | the flight recorder's ring (``utils/blackbox.py``) |
+| ``blackbox_dir``    | ``""``    | post-mortem bundle directory (empty = ring only) |
+| ``blackbox_cap``    | ``512``   | flight-recorder ring capacity (events) |
+| ``slo_ms``          | ``""``    | latency objectives ``default_ms[,fp12=ms,...]``, evaluated from the profile store |
+| ``trace_id``        | ``""``    | inherited trace id (minted per client or query when empty) |
+| ``sched``           | ``True``  | the scheduler (``engine/scheduler.py``) admits every bridge ``PLAN_EXECUTE`` |
+| ``max_sessions``    | ``8``     | concurrent admitted ``PLAN_EXECUTE`` sessions; arrivals past it queue |
+| ``admission_queue_s`` | ``5.0`` | longest wait in the admission queue before a query is shed |
+| ``admission_burn``  | ``0.9``   | SLO burn rate at or above which a saturated server sheds a fingerprint at once |
+| ``session_budget_bytes`` | ``0`` | a session's device-memory budget, charged at chunk boundaries (0 = none) |
+
+The bridge server (``bridge/server.py``) sets fields from its
+``--set field=value`` arguments through ``parse_setting``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 
@@ -71,6 +89,47 @@ class Config:
     profile_cap: int = 512
     timeline: bool = False
     timeline_cap: int = 16384
+    faults: str = ""
+    retry_max: int = 3
+    retry_backoff_s: float = 0.01
+    bridge_timeout_s: float = 60.0
+    mem_debug: bool = False
+    blackbox: bool = True
+    blackbox_dir: str = ""
+    blackbox_cap: int = 512
+    slo_ms: str = ""
+    trace_id: str = ""
+    sched: bool = True
+    max_sessions: int = 8
+    admission_queue_s: float = 5.0
+    admission_burn: float = 0.9
+    session_budget_bytes: int = 0
 
 
 config = Config()
+
+
+def parse_setting(text: str) -> tuple:
+    """``"field=value"`` -> ``(field, value)`` typed as the field's
+    annotation (``bool`` reads 1/true/yes/on; an ``Optional`` field reads
+    ``none`` as None).  Raises ``ValueError`` for an unknown field or a
+    value of the wrong type."""
+    name, sep, raw = text.partition("=")
+    name, raw = name.strip(), raw.strip()
+    kinds = {f.name: f.type for f in fields(Config)}
+    if not sep or name not in kinds:
+        raise ValueError(f"bad setting {text!r}: want field=value with a "
+                         f"field of {sorted(kinds)}")
+    kind = kinds[name]
+    if "Optional" in kind and raw.lower() == "none":
+        return name, None
+    if "bool" in kind:
+        low = raw.lower()
+        if low not in ("1", "true", "yes", "on", "0", "false", "no", "off"):
+            raise ValueError(f"bad boolean for {name}: {raw!r}")
+        return name, low in ("1", "true", "yes", "on")
+    if "int" in kind:
+        return name, int(raw)
+    if "float" in kind:
+        return name, float(raw)
+    return name, raw

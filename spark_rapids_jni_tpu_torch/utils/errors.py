@@ -1,9 +1,8 @@
 """Error taxonomy, typed failures, and cooperative cancellation.
 
 A copy of ``spark_rapids_jni_tpu/utils/errors.py`` (the port imports
-nothing of that package).  Two changes: ``retry_call``'s defaults are the
-module constants ``RETRY_MAX`` and ``RETRY_BACKOFF_S`` (no environment
-knobs), and retries count in ``utils.tracing`` and log through ``logging``.
+nothing of that package).  One change: retries count in ``utils.tracing``
+and log through ``logging``.
 
 The serving regime (ROADMAP item 3) needs every failure classified before
 anything can decide what to do with it: retry, degrade, or surface.  This
@@ -241,10 +240,6 @@ class CancelToken:
 
 # -- bounded retry -----------------------------------------------------------
 
-RETRY_MAX = 3          # retries after the first attempt
-RETRY_BACKOFF_S = 0.01  # first backoff; doubles per attempt
-
-
 def retry_call(fn: Callable, site: str,
                retry_max: Optional[int] = None,
                backoff_s: Optional[float] = None,
@@ -253,14 +248,16 @@ def retry_call(fn: Callable, site: str,
 
     Only exceptions classifying retryable (transient I/O) are retried —
     resource exhaustion and cancellation propagate immediately.  Backoff
-    doubles per attempt from ``backoff_s`` (default ``RETRY_BACKOFF_S``) with
+    doubles per attempt from ``backoff_s`` (default ``config.retry_backoff_s``;
+    ``retry_max`` defaults to ``config.retry_max``) with
     deterministic ±25% jitter derived from the attempt index.  Each retry
     ticks the counters ``engine.retries`` and ``engine.retries.<site>``.
     """
     import logging
     from . import tracing
-    limit = RETRY_MAX if retry_max is None else int(retry_max)
-    base = RETRY_BACKOFF_S if backoff_s is None else float(backoff_s)
+    from .config import config
+    limit = config.retry_max if retry_max is None else int(retry_max)
+    base = config.retry_backoff_s if backoff_s is None else float(backoff_s)
     attempt = 0
     while True:
         if cancel is not None:

@@ -20,9 +20,11 @@ helper threads captures ``current()`` and re-enters it with ``bind(qm)``.
 With ``config.profile_dir`` set, every query writes one compact profile
 at close (``utils/profile.py``), keyed by its plan fingerprint and its
 pre-optimization source fingerprint; ``host_sync`` drops an instant on the
-event timeline (``utils/timeline.py``) when that is on.  Not ported: the
-JAX package's flight recorder (``blackbox``) and the trace ids and SLO
-gauges that ride on it.
+event timeline (``utils/timeline.py``) when that is on, and an event in
+the flight recorder's ring (``utils/blackbox.py``) always.  A query carries
+the trace id of its ``blackbox.query_scope`` (the bridge's client id), which
+its summary, progress entry and profile repeat; ``prometheus_text`` adds
+the SLO burn gauges when objectives are declared (``config.slo_ms``).
 """
 
 from __future__ import annotations
@@ -146,11 +148,14 @@ class QueryMetrics:
     __slots__ = ("qid", "name", "t0", "wall_s", "stats", "counters",
                  "node_spans", "hists", "timers", "mem", "fingerprint",
                  "source_fingerprint", "outcome", "degradations",
-                 "decisions", "progress", "_lock")
+                 "decisions", "progress", "trace_id", "_lock")
 
     def __init__(self, name: str = ""):
         self.qid = next(_qids)
         self.name = name or f"q{self.qid}"
+        # end-to-end trace id (utils/blackbox.py query_scope), so client
+        # spans, server spans and post-mortem bundles join on one id
+        self.trace_id: str = ""
         self.t0 = time.perf_counter()
         self.wall_s: float | None = None
         self.stats: dict = {}
@@ -296,6 +301,8 @@ class QueryMetrics:
                 out["degradations"] = list(self.degradations)
             if self.decisions:
                 out["decisions"] = [dict(d) for d in self.decisions]
+            if self.trace_id:
+                out["trace_id"] = self.trace_id
             return out
 
 
@@ -408,7 +415,10 @@ def host_sync(n: int = 1, key=None, label: str = "") -> None:
     """Record a deliberate device->host sync point (attributed if keyed).
     Also drops a timeline instant at the sync site, gated by the timeline
     alone, so the trace marks the engine's deliberate syncs with the
-    metrics layer off."""
+    metrics layer off, and a flight-recorder event, which survives with
+    both off."""
+    from . import blackbox
+    blackbox.record("host_sync", label=label, n=n)
     if config.timeline:
         timeline.instant("engine.host_sync",
                          {"label": label} if label else None)
@@ -459,7 +469,9 @@ def recent_summaries(limit: int | None = None) -> list:
 
 def progress_snapshot() -> list:
     """One entry per in-flight query, qid order: chunk/row/byte progress
-    and an ETA (remaining chunks x the query's own chunk-latency p50)."""
+    and an ETA (remaining chunks x the query's own chunk-latency p50).
+    ``key`` is the trace id (``qid:<n>`` for an untraced query): two
+    concurrent sessions of the same plan share name and fingerprint."""
     with _lock:
         live = list(_progress.values())
     out = []
@@ -468,7 +480,10 @@ def progress_snapshot() -> list:
             p = dict(qm.progress)
             h = qm.hists.get("engine.stream.chunk_latency_s")
             p50 = _hist_percentiles(h, (0.5,))["p50"] if h else None
-            entry = {"qid": qm.qid, "name": qm.name, "key": f"qid:{qm.qid}",
+            entry = {"qid": qm.qid, "name": qm.name,
+                     "key": qm.trace_id or f"qid:{qm.qid}",
+                     "fingerprint": qm.fingerprint,
+                     "trace_id": qm.trace_id,
                      "wall_s": round(time.perf_counter() - qm.t0, 6), **p}
         remaining = p["chunks_total"] - p["chunks_done"]
         entry["eta_s"] = (round(remaining * p50, 6)
@@ -497,13 +512,18 @@ def _prom_hist(name: str, h: dict, lines: list) -> None:
 
 def prometheus_text(snap: dict | None = None, prefix: str = "") -> str:
     """The counters/gauges/histograms registry in Prometheus text format
-    (version 0.0.4).  ``snap`` takes a ``snapshot()``-shaped dict; the
-    default is this process's live registry plus in-flight progress."""
+    (version 0.0.4).  ``snap`` takes a ``snapshot()``-shaped dict (an
+    ``OP_METRICS`` reply carries its ``slo`` block); the default is this
+    process's live registry plus in-flight progress and, with objectives
+    declared, the SLO burn per source fingerprint."""
     if snap is None:
         snap = {"counters": tracing.counters_snapshot(prefix),
                 "histograms": histograms_snapshot(prefix),
                 "gauges": gauges_snapshot(prefix),
                 "progress": progress_snapshot()}
+        from . import blackbox
+        if blackbox.slo_enabled():
+            snap["slo"] = blackbox.slo_report()
     lines: list[str] = []
     for k in sorted(snap.get("counters") or {}):
         name = _prom_name(k)
@@ -526,6 +546,22 @@ def prometheus_text(snap: dict | None = None, prefix: str = "") -> str:
                 for e in progress:
                     lines.append(f'{name}{{qid="{e["qid"]}",'
                                  f'name="{e["name"]}"}} {e[g]}')
+    slo = snap.get("slo") or {}
+    if slo.get("enabled"):
+        if slo.get("default_ms") is not None:
+            lines.append("# TYPE srjt_slo_default_objective_ms gauge")
+            lines.append("srjt_slo_default_objective_ms "
+                         f"{float(slo['default_ms']):g}")
+        entries = slo.get("entries") or []
+        for g in ("objective_ms", "runs", "breaches", "errors",
+                  "worst_ms", "burn_rate"):
+            if not entries:
+                break
+            name = f"srjt_slo_{g}"
+            lines.append(f"# TYPE {name} gauge")
+            for e in entries:
+                lines.append(f'{name}{{fingerprint="{e["fingerprint"]}"}} '
+                             f"{float(e[g]):g}")
     return "\n".join(lines) + "\n"
 
 

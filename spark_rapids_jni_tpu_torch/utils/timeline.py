@@ -28,7 +28,9 @@ Event vocabulary (Chrome trace-event ``ph`` codes):
   live-bytes over time, fed by ``metrics.mem_checkpoint``).
 
 Events carry the active query name (``metrics.current()``) as an arg when
-one is bound, so timeline slices correlate with per-query summaries.
+one is bound, and the trace id of ``blackbox.current_trace()`` when there
+is one, so timeline slices correlate with per-query summaries, bridge
+calls and post-mortem bundles.
 
 Export: ``export()`` -> ``{"traceEvents": [...]}`` with thread-name
 metadata records; ``dump(path)`` writes it as JSON.  Timestamps are
@@ -112,6 +114,12 @@ def _append(ev: dict, dev: int | None = None) -> None:
     q = _qname()
     if q is not None:
         ev.setdefault("args", {})["query"] = q
+    # end-to-end trace id (utils/blackbox.py): ties timeline slices to
+    # bridge spans and post-mortem bundles
+    from . import blackbox
+    trace = blackbox.current_trace()
+    if trace:
+        ev.setdefault("args", {})["trace"] = trace
     dropped_now = warn = False
     with _lock:
         if tid not in _thread_names:
