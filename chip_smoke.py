@@ -6,13 +6,15 @@ NDS-shaped Parquet files on the card for q5-lite, hand-wired and as an
 engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, the
 exchange layer on a mesh of 8 shards of the card, adaptive execution
 with the fused partial -> exchange -> combine stage on the same mesh, and
-the device server the JVM talks to (bridge/), reached over its socket.
+the device server the JVM talks to (bridge/), reached over its socket, and
+nested columns through the rest of I/O (Parquet, ORC, CSV).
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
         [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
         [--exchange-rows 16777216] [--exchange-string-rows 4194304]
         [--adaptive-rows 16777216] [--bridge-rows 16777216]
+        [--nested-rows 4194304]
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -157,6 +159,23 @@ Phases (any failed check raises, and the script exits non-zero):
             running scan, a device-decode fault retried to the same answer
             and a post-mortem bundle naming its trace id.  Round-trip ms,
             shm GB/s, the plan's warm time beside in-process, launches.
+16. nested  a Spark-shaped fact of 2^22 rows in 2^20-row groups with
+            nested columns (INT64 key and FLOAT64 measure with nulls, a
+            STRING, an optional STRUCT<id, name, price> with nulls at both
+            levels, LIST<INT32> of 0-16 items with null lists and items,
+            LIST<LIST<INT64>>), written by the port's Parquet writer
+            (snappy: pyarrow's codec where it imports, the port's own
+            encoder on a host without it), read whole and through the
+            chunked reader onto the card and held against the written
+            arrays (offsets, validity, child data), row group 0 bit for
+            bit against the port's CPU read; an engine plan projecting
+            the key and measure under a key filter (the device route:
+            K3/W1/W2 counted), and one projecting the STRUCT and the LIST
+            too (every group to the host route, reason "nested", the rows
+            gathered on the card), both against numpy; an ORC round trip
+            (zlib, 2^20 rows with the STRUCT and the LIST) and a CSV round
+            trip (2^20 rows x 6 columns, nulls and quoted fields) onto the
+            card.  Times of each step.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -168,6 +187,7 @@ package beside it, the script fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -674,8 +694,6 @@ _PHYS = {"bool": 0, "int32": 1, "int64": 2, "float32": 4, "float64": 5,
 _ENC_PLAIN, _ENC_RLE, _ENC_RLE_DICT = 0, 3, 8
 _CODEC = {"none": 0, "snappy": 1}
 PAGE_BYTES = 1 << 20  # largest uncompressed data page
-SNAPPY_FRAGMENT = 1 << 16  # snappy compresses 64 KiB fragments
-COPY_BLOCK = 64
 
 
 def _uvarint(n: int) -> bytes:
@@ -861,48 +879,6 @@ def snappy_torn_set(path, device: str):
     return comp, clen.astype(np.int32), ulen.astype(np.int32), g
 
 
-def snappy_encode(data: bytes, copies: bool) -> bytes:
-    """A snappy raw block of ``data``: literal tokens of at most one 64 KiB
-    fragment, plus (``copies``) a copy token wherever a 64-byte block
-    repeats an earlier block of its fragment."""
-    out = [_uvarint(len(data))]
-
-    def literal(b):
-        n = len(b) - 1
-        if n < 60:
-            out.append(bytes([n << 2]))
-        else:
-            nb = (n.bit_length() + 7) // 8
-            out.append(bytes([(59 + nb) << 2]) + n.to_bytes(nb, "little"))
-        out.append(b)
-
-    u = np.frombuffer(data, np.uint8)
-    for f0 in range(0, len(data), SNAPPY_FRAGMENT):
-        frag = data[f0:f0 + SNAPPY_FRAGMENT]
-        nb = len(frag) // COPY_BLOCK if copies else 0
-        rep = np.zeros(0, np.int64)
-        if nb > 1:
-            blocks = u[f0:f0 + nb * COPY_BLOCK].reshape(nb, COPY_BLOCK)
-            _, first, inv = np.unique(
-                np.ascontiguousarray(blocks).view(f"V{COPY_BLOCK}")[:, 0],
-                return_index=True, return_inverse=True)
-            src = first[inv.reshape(-1)]
-            rep = np.flatnonzero(src < np.arange(nb))
-            rep_src = src[rep]
-        pos = 0
-        for j, sj in zip(rep.tolist(), rep_src.tolist() if nb > 1 else []):
-            at = j * COPY_BLOCK
-            if at > pos:
-                literal(frag[pos:at])
-            off = (j - sj) * COPY_BLOCK
-            out.append(bytes([((COPY_BLOCK - 1) << 2) | 2])
-                       + off.to_bytes(2, "little"))
-            pos = at + COPY_BLOCK
-        if pos < len(frag):
-            literal(frag[pos:])
-    return b"".join(out)
-
-
 def _plain_bytes(kind: str, vals) -> bytes:
     if kind == "bool":
         return np.packbits(np.asarray(vals, np.uint8),
@@ -914,8 +890,8 @@ def _plain_bytes(kind: str, vals) -> bytes:
 
 def _page(ptype: int, body: bytes, codec: str, copies: bool, sub: tuple):
     """(header + compressed body) of one page."""
-    from spark_rapids_jni_tpu_torch.io import thrift as T
-    comp = snappy_encode(body, copies) if codec == "snappy" else body
+    from spark_rapids_jni_tpu_torch.io import snappy, thrift as T
+    comp = snappy.compress(body, copies) if codec == "snappy" else body
     hdr = T.encode_struct([(1, T.T_I32, ptype), (2, T.T_I32, len(body)),
                            (3, T.T_I32, len(comp)), sub])
     return hdr + comp
@@ -4038,6 +4014,347 @@ def phase_bridge(torch, root, tracing, n: int, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16. nested: STRUCT and LIST columns through Parquet, ORC and CSV
+# ---------------------------------------------------------------------------
+
+NESTED_GROUP_ROWS = 1 << 20    # 4 row groups at the default 2^22 rows
+NESTED_KEYS = 1_000_000        # the key's domain
+NESTED_CUT = 500_000           # both plans keep key < NESTED_CUT
+NESTED_PASS = 96 << 20         # the chunked reader's pass limit
+NESTED_SIDE_ROWS = 1 << 20     # rows of the ORC and CSV round trips
+NESTED_FIELDS = ["id", "name", "price"]
+
+
+def _ragged(rng, lens, valid, values):
+    """(int64 offsets, valid) of rows with ``lens`` items, null rows
+    emptied, and the flat items ``values(total)``."""
+    lens = np.where(valid, lens, 0)
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return offs, values(int(offs[-1]))
+
+
+def nested_columns(n: int, seed: int):
+    """The nested phase's fact table as port Columns on the CPU, every null
+    (at any level) holding zeros or no bytes: an INT64 key and a FLOAT64
+    measure with nulls, a STRING, an optional STRUCT<id INT64, name
+    STRING, price FLOAT64> with nulls at both levels, LIST<INT32> (0-16
+    items, mean 8, 5% null lists, 5% null items) and LIST<LIST<INT64>>."""
+    import torch
+    from spark_rapids_jni_tpu_torch import dtypes as pdt
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    rng = np.random.default_rng([seed, 16])
+
+    def fixed(dtype, vals, valid=None):
+        if valid is not None:
+            vals = np.where(valid, vals, 0).astype(vals.dtype)
+        return Column.fixed(dtype, vals, valid, device="cpu")
+
+    def text(valid, lo, hi):
+        offs, chars = _ragged(rng, rng.integers(lo, hi + 1, n), valid,
+                              lambda t: rng.integers(97, 123, t,
+                                                     dtype=np.uint8))
+        return Column.string(chars, offs.astype(np.int32), valid,
+                             device="cpu")
+
+    kv = rng.random(n) >= 0.02
+    vv = rng.random(n) >= 0.03
+    sv = rng.random(n) >= 0.05
+    idv = rng.random(n) >= 0.03
+    namev = sv & (rng.random(n) >= 0.04)
+    st = Column(pdt.STRUCT, validity=torch.from_numpy(sv), children=(
+        fixed(pdt.INT64, rng.integers(0, 1 << 40, n) * sv, idv),
+        text(namev, 5, 16),
+        fixed(pdt.FLOAT64, np.where(sv, np.round(
+            rng.random(n) * 1000, 2), 0.0))))
+    lv = rng.random(n) >= 0.05
+    loffs, items = _ragged(rng, rng.integers(0, 17, n), lv,
+                           lambda t: rng.integers(-10**6, 10**6, t)
+                           .astype(np.int32))
+    iv = rng.random(len(items)) >= 0.05
+    l_col = Column.list_(fixed(pdt.INT32, items, iv),
+                         loffs.astype(np.int32), lv, device="cpu")
+    ov = rng.random(n) >= 0.03
+    ooffs, _ = _ragged(rng, rng.integers(0, 5, n), ov, lambda t: None)
+    m = int(ooffs[-1])
+    inv = rng.random(m) >= 0.03
+    ioffs, leaf = _ragged(rng, rng.integers(0, 7, m), inv,
+                          lambda t: rng.integers(-2**40, 2**40, t))
+    inner = Column.list_(fixed(pdt.INT64, leaf), ioffs.astype(np.int32),
+                         inv, device="cpu")
+    ll_col = Column.list_(inner, ooffs.astype(np.int32), ov, device="cpu")
+    return Table([
+        fixed(pdt.INT64, rng.integers(0, NESTED_KEYS, n), kv),
+        fixed(pdt.FLOAT64, rng.standard_normal(n) * 100, vv),
+        text(rng.random(n) >= 0.01, 5, 20),
+        st, l_col, ll_col], ["k", "v", "s", "st", "l", "ll"])
+
+
+def nested_mismatch(got, want, where: str, live=None):
+    """The first place two columns differ, or None: validity (a field of a
+    null struct row counts as null), offsets and chars exactly, fixed-width
+    values bit for bit where valid.  ``got`` may sit on the card."""
+    gv = got.valid_mask().cpu().numpy()
+    wv = want.valid_mask().cpu().numpy()
+    if live is not None:
+        wv = wv & live
+    if int(got.dtype.id) != int(want.dtype.id):
+        return where + ".dtype"
+    if not np.array_equal(gv, wv):
+        return where + ".validity"
+    if got.offsets is not None and not np.array_equal(
+            got.offsets.cpu().numpy(), want.offsets.cpu().numpy()):
+        return where + ".offsets"
+    if got.dtype.id.name == "STRUCT":
+        for i, (a, b) in enumerate(zip(got.children, want.children)):
+            bad = nested_mismatch(a, b, f"{where}.{i}", wv)
+            if bad:
+                return bad
+        return None
+    if got.dtype.id.name == "LIST":
+        return nested_mismatch(got.children[0], want.children[0],
+                               where + ".item")
+    g, w = got.data.cpu().numpy(), want.data.cpu().numpy()
+    if got.dtype.is_string:
+        return None if np.array_equal(g, w) else where + ".chars"
+    if len(g) != len(w):
+        return where + ".data"
+    if not len(g):
+        return None
+    eq = g.view(np.uint8).reshape(len(g), -1) == \
+        w.view(np.uint8).reshape(len(w), -1)
+    return None if eq.all(axis=1)[wv].all() else where + ".data"
+
+
+def tables_match(got, want, what: str, device=None) -> None:
+    check(list(got.names) == list(want.names) and
+          got.num_rows == want.num_rows, f"{what}: names and rows")
+    for name, a, b in zip(got.names, got.columns, want.columns):
+        if device is not None:
+            check(a.device.type == device, f"{what}: {name} on {device}")
+        bad = nested_mismatch(a, b, name)
+        check(bad is None, f"{what}: {bad} equals the written arrays")
+
+
+def same_bits(a, b) -> bool:
+    """Two columns bit for bit: the same buffers (None where None) at every
+    nesting level."""
+    for x, y in ((a.data, b.data), (a.validity, b.validity),
+                 (a.offsets, b.offsets)):
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not np.array_equal(
+                x.cpu().numpy().view(np.uint8), y.cpu().numpy().view(np.uint8)):
+            return False
+    return len(a.children) == len(b.children) and all(
+        same_bits(x, y) for x, y in zip(a.children, b.children))
+
+
+def csv_columns(table, n: int):
+    """The CSV round trip's 6 columns from the fact's first ``n`` rows:
+    the key, the struct's 2-decimal price (exact through pandas' float
+    parse), the STRING, a bool, an INT32 and a note that needs quoting."""
+    from spark_rapids_jni_tpu_torch import dtypes as pdt
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.ops.selection import slice_table
+    head = slice_table(table, 0, n)
+    st = head["st"]
+    rng = np.random.default_rng(161)
+    bv = rng.random(n) >= 0.04
+    notes = [None if i % 19 == 0 else
+             f'say "{i % 97}", then {i % 7}' if i % 3 == 0 else
+             f"line {i % 1009}\nnext" if i % 3 == 1 else f"plain{i % 5003}"
+             for i in range(n)]
+    price = Column.fixed(pdt.FLOAT64, st.children[2].data, st.validity,
+                         device="cpu")
+    return Table([
+        head["k"], price, head["s"],
+        Column.fixed(pdt.BOOL8, (rng.random(n) < 0.5) & bv, bv,
+                     device="cpu"),
+        Column.fixed(pdt.INT32, rng.integers(-2**31, 2**31, n), device="cpu"),
+        Column.from_pylist(notes, device="cpu")],
+        ["k", "price", "s", "flag", "qty", "note"])
+
+
+@contextlib.contextmanager
+def without_modules(*names):
+    """The body runs as on a host without the named packages: importing
+    one of them raises ImportError until the body ends."""
+    saved = {m: sys.modules.get(m) for m in names}
+    sys.modules.update({m: None for m in names})
+    try:
+        yield
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def phase_nested(torch, root, tracing, n: int, seed: int) -> dict:
+    """``_phase_nested`` with pyarrow and pandas blocked: the port's own
+    snappy encoder writes the file and its own tokenizer reads the CSV, as
+    on a host that has neither package."""
+    host_had = {m: _importable(m) for m in ("pyarrow", "pandas")}
+    with without_modules("pyarrow", "pandas"):
+        out = _phase_nested(torch, root, tracing, n, seed)
+    out["host_has"] = host_had
+    return out
+
+
+def _importable(name: str) -> bool:
+    import importlib.util
+    try:
+        return importlib.util.find_spec(name) is not None
+    except (ImportError, ValueError):
+        return False
+
+
+def _phase_nested(torch, root, tracing, n: int, seed: int) -> dict:
+    """Nested columns and the rest of I/O on the card: the port's Parquet
+    writer (snappy, with its own encoder where pyarrow is absent), the
+    whole and chunked reads of STRUCT and LIST onto the card against the
+    written arrays, the first group against the CPU read, two engine
+    plans (the scalar projection by the device route, K3/W1/W2; the
+    nested one by the host route, reason "nested", gathered on the card),
+    an ORC round trip with the STRUCT and the LIST, a CSV round trip."""
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.engine.plan import (
+        Filter, Project, Scan, col, lit, topo_nodes)
+    from spark_rapids_jni_tpu_torch.io import (
+        ParquetChunkedReader, ParquetFile, read_csv, read_orc,
+        read_parquet, write_csv, write_orc, write_parquet)
+    from spark_rapids_jni_tpu_torch.io.parquet import arrow_codec
+    from spark_rapids_jni_tpu_torch.ops.selection import (concat_tables,
+                                                          gather_table,
+                                                          slice_table)
+    out = {"phase": "nested", "rows": n, "group_rows": NESTED_GROUP_ROWS,
+           "snappy_encoder": "pyarrow" if arrow_codec("snappy")[0]
+           else "port (io/snappy.py compress, literal tokens)"}
+    t0 = time.perf_counter()
+    src = nested_columns(n, seed)
+    out["build_s"] = time.perf_counter() - t0
+    out["source_bytes"] = sum(column_bytes(c) for c in src.columns)
+    path = root / "nested_fact.parquet"
+    t0 = time.perf_counter()
+    write_parquet(src, path, compression="snappy",
+                  row_group_size=NESTED_GROUP_ROWS,
+                  struct_fields={"st": NESTED_FIELDS})
+    out["write_s"] = time.perf_counter() - t0
+    out["file_bytes"] = path.stat().st_size
+    pf = ParquetFile(path)
+    check(pf.num_row_groups == -(-n // NESTED_GROUP_ROWS),
+          "the nested file has one row group per 2^20 rows")
+    check([f.name for f in pf.schema[3].fields] == NESTED_FIELDS,
+          "the struct's field names are in the footer")
+
+    got, out["read_s"] = wall(torch, lambda: read_parquet(path, device=DEV))
+    tables_match(got, src, "read_parquet", DEV)
+    out["device_bytes"] = sum(column_bytes(c) for c in got.columns)
+    del got
+    torch.cuda.empty_cache()
+
+    def chunked():
+        with ParquetChunkedReader(path, pass_read_limit=NESTED_PASS,
+                                  device=DEV) as r:
+            return list(r)
+    chunks, out["chunked_s"] = wall(torch, chunked)
+    out["chunks"] = len(chunks)
+    check(len(chunks) > pf.num_row_groups,
+          "the pass limit splits the row groups")
+    tables_match(concat_tables(chunks), src, "ParquetChunkedReader",
+                 DEV)
+    del chunks
+    torch.cuda.empty_cache()
+
+    g0, out["group0_s"] = wall(torch, lambda: pf.read_row_group(
+        0, device=DEV))
+    g0_cpu = pf.read_row_group(0, device="cpu")
+    check(all(same_bits(a, b) for a, b in zip(g0.columns, g0_cpu.columns)),
+          "row group 0 on the card == the port's CPU read, bit for bit")
+    del g0, g0_cpu
+
+    kv = src["k"].valid_mask().numpy()
+    keep = np.flatnonzero(kv & (src["k"].data.numpy() < NESTED_CUT))
+    want = gather_table(src, torch.from_numpy(keep))
+    cut = ("<", col("k"), lit(NESTED_CUT))
+
+    def plan_of(cols):
+        return pe.optimize(Project(Filter(Scan(path, chunk_bytes=64 << 20),
+                                          cut), cols))
+    scalar = plan_of(["k", "v"])
+    scan = [x for x in topo_nodes(scalar) if isinstance(x, Scan)][0]
+    out["scalar_scan_columns"] = list(scan.columns or ())
+    check(sorted(out["scalar_scan_columns"]) == ["k", "v"],
+          "the optimizer prunes the scan to the key and the measure")
+    res, out["scalar_cold_s"] = wall(torch, lambda: pe.execute(
+        scalar, device=DEV))
+    f0 = tracing.counter_value("io.device_decode.fallbacks")
+    tracing.reset_counters("kernel.")
+    res, out["scalar_warm_s"] = wall(torch, lambda: pe.execute(
+        scalar, device=DEV))
+    out["launches"] = kernel_launches(tracing)
+    check(tracing.counter_value("io.device_decode.fallbacks") == f0,
+          "the scalar projection keeps the device route")
+    check(all(out["launches"][k] > 0 for k in DECODE_KERNELS),
+          "the scalar projection launches K3, W1 and W2")
+    tables_match(res, want.select(["k", "v"]), "scalar plan", DEV)
+    out["scalar_rows"] = res.num_rows
+    del res
+
+    nested = plan_of(["k", "st", "l"])
+    nested_reason = "io.device_decode.fallback.nested"
+    r0 = tracing.counter_value(nested_reason)
+    res, out["nested_plan_s"] = wall(torch, lambda: pe.execute(
+        nested, device=DEV))
+    out["nested_fallbacks"] = tracing.counter_value(nested_reason) - r0
+    check(out["nested_fallbacks"] == pf.num_row_groups,
+          'every group of the nested plan went to the host as "nested"')
+    tables_match(res, want.select(["k", "st", "l"]), "nested plan", DEV)
+    out["nested_rows"] = res.num_rows
+    del res, want
+    torch.cuda.empty_cache()
+
+    side = min(NESTED_SIDE_ROWS, n)
+    orc_src = slice_table(src.select(["k", "st", "l"]), 0, side)
+    orc_path = root / "nested.orc"
+    t0 = time.perf_counter()
+    write_orc(orc_src, orc_path, compression="zlib",
+              struct_fields={"st": NESTED_FIELDS})
+    out["orc_write_s"] = time.perf_counter() - t0
+    out["orc_bytes"] = orc_path.stat().st_size
+    back, out["orc_read_s"] = wall(torch, lambda: read_orc(orc_path,
+                                                          device=DEV))
+    tables_match(back, orc_src, "ORC round trip", DEV)
+    del back, orc_src
+
+    csv_src = csv_columns(src, side)
+    csv_path = root / "nested.csv"
+    t0 = time.perf_counter()
+    write_csv(csv_src, csv_path)
+    out["csv_write_s"] = time.perf_counter() - t0
+    out["csv_bytes"] = csv_path.stat().st_size
+    back, out["csv_read_s"] = wall(torch, lambda: read_csv(csv_path,
+                                                          device=DEV))
+    check([c.dtype.id.name for c in back.columns] ==
+          ["INT64", "FLOAT64", "STRING", "BOOL8", "INT64", "STRING"],
+          "CSV types inferred as the JAX reader infers them")
+    for name, a, b in zip(back.names, back.columns, csv_src.columns):
+        check(a.device.type == DEV, f"CSV {name} on the card")
+        if name == "qty":  # written from INT32, inferred INT64
+            check(np.array_equal(a.data.cpu().numpy(),
+                                 b.data.numpy().astype(np.int64)),
+                  "CSV qty reads back")
+            continue
+        bad = nested_mismatch(a, b, name)
+        check(bad is None, f"CSV round trip: {bad}")
+    out["csv_rows"] = back.num_rows
+    del back
+    return out
+
+
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4060,6 +4377,7 @@ def main() -> int:
     ap.add_argument("--exchange-string-rows", type=int, default=1 << 22)
     ap.add_argument("--adaptive-rows", type=int, default=1 << 24)
     ap.add_argument("--bridge-rows", type=int, default=1 << 24)
+    ap.add_argument("--nested-rows", type=int, default=1 << 22)
     args = ap.parse_args()
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
@@ -4165,6 +4483,11 @@ def main() -> int:
         bridge = phase_bridge(torch, root, tracing, args.bridge_rows,
                               args.seed)
         emit(bridge)
+        torch.cuda.empty_cache()
+
+        nested = phase_nested(torch, root, tracing, args.nested_rows,
+                              args.seed)
+        emit(nested)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4179,6 +4502,7 @@ def main() -> int:
          "exchange_launches": exchange["launches"][name],
          "adaptive_launches": adaptive["launches"][name],
          "bridge_launches": bridge["launches"][name],
+         "nested_launches": nested["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
@@ -4197,6 +4521,7 @@ def main() -> int:
         "exchange_launches": exchange["launches"]["plain_gather"],
         "adaptive_launches": adaptive["launches"]["plain_gather"],
         "bridge_launches": bridge["launches"]["plain_gather"],
+        "nested_launches": nested["launches"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -4217,6 +4542,7 @@ def main() -> int:
             "exchange_launches": exchange["launches"][name],
             "adaptive_launches": adaptive["launches"][name],
             "bridge_launches": bridge["launches"][name],
+            "nested_launches": nested["launches"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

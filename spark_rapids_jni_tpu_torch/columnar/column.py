@@ -4,12 +4,13 @@ The analog of ``cudf::column``.  A column is:
 
 - ``data``:      tensor of the storage dtype (``DType.torch_dtype``) for
                  fixed-width types, the ``uint8`` character buffer for
-                 STRING, or None for LIST parents;
+                 STRING, or None for LIST and STRUCT parents;
 - ``validity``:  optional ``bool[n]`` tensor; None means all valid.  The cudf
                  one-bit-per-row form is produced only at wire boundaries
                  (``utils.bitmask``);
 - ``offsets``:   optional ``int32[n+1]`` tensor for STRING/LIST;
-- ``children``:  the LIST child column.
+- ``children``:  the LIST child column, or the STRUCT fields (unnamed: a
+                 field's name lives in the file schema, as in cudf).
 
 Constructors take ``device=`` (default ``"cuda"``).
 """
@@ -259,11 +260,15 @@ class Column:
             child = self.children[0].to_pylist()
             return [child[offs[i]:offs[i + 1]] if valid[i] else None
                     for i in range(self.size)]
+        if self.dtype.id == TypeId.STRUCT:
+            fields = [c.to_pylist() for c in self.children]
+            return [tuple(f[i] for f in fields) if valid[i] else None
+                    for i in range(self.size)]
         if self.dtype.is_string:
             chars = self.data.cpu().numpy().tobytes()
-            offs = self.offsets.cpu().numpy()
-            return [chars[offs[i]:offs[i + 1]].decode() if valid[i] else None
-                    for i in range(self.size)]
+            offs = self.offsets.cpu().tolist()
+            return [chars[a:b].decode() if ok else None
+                    for a, b, ok in zip(offs, offs[1:], valid.tolist())]
         if self.dtype.id == TypeId.DECIMAL128:
             import decimal
             ctx = decimal.Context(prec=50)
@@ -288,6 +293,8 @@ class Column:
             raise NotImplementedError("string gather lives in ops.selection")
         if self.dtype.id == TypeId.LIST:
             return self._gather_list(indices, indices_valid)
+        if self.dtype.id == TypeId.STRUCT:
+            return self._gather_struct(indices, indices_valid)
         indices = indices.to(self.device)
         size = self.size
         ok = (indices >= 0) & (indices < size)
@@ -308,33 +315,52 @@ class Column:
             valid = valid & indices_valid
         return Column(self.dtype, data=data, validity=valid)
 
+    def _gather_struct(self, indices, indices_valid=None) -> "Column":
+        """STRUCT row gather, field by field (STRING and LIST fields
+        through ``ops.selection``); the struct's own validity follows the
+        same NULLIFY rule as a flat column's."""
+        from ..ops.selection import gather_column
+        indices = indices.to(self.device)
+        kids = tuple(gather_column(c, indices, indices_valid)
+                     for c in self.children)
+        size = self.size
+        valid = (indices >= 0) & (indices < size)
+        if self.validity is not None and size:
+            valid = valid & self.validity[indices.clamp(0, size - 1)]
+        if indices_valid is not None:
+            valid = valid & indices_valid.to(self.device)
+        return Column(self.dtype, validity=valid, children=kids)
+
     def _gather_list(self, indices, indices_valid=None) -> "Column":
-        """LIST row gather (host-side: the output's size is data-dependent)."""
+        """LIST row gather on the column's device: each output row takes
+        its source row's element range (an out-of-bounds row an empty
+        one); the one host sync is the gathered element count."""
         from ..ops.selection import gather_column
         dev = self.device
-        idx = indices.cpu().numpy().astype(np.int64)
-        offs = self.offsets.cpu().numpy().astype(np.int64)
-        n = self.size
+        idx = indices.to(device=dev, dtype=torch.int64)
+        m, n = idx.shape[0], self.size
         ok = (idx >= 0) & (idx < n)
-        safe = np.clip(idx, 0, max(n - 1, 0))
-        lens = (offs[safe + 1] - offs[safe]) * ok if n else \
-            np.zeros(len(idx), np.int64)
-        new_offs = np.zeros(len(idx) + 1, np.int64)
-        np.cumsum(lens, out=new_offs[1:])
-        if new_offs[-1] > np.iinfo(np.int32).max:
+        safe = idx.clamp(0, max(n - 1, 0))
+        offs = self.offsets.to(torch.int64)
+        starts = offs[safe] if n else torch.zeros_like(idx)
+        lens = torch.where(ok, offs[safe + 1] - starts, 0) if n else \
+            torch.zeros_like(idx)
+        new_offs = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(lens, 0, out=new_offs[1:])
+        total = int(new_offs[-1]) if m else 0
+        if total > np.iinfo(np.int32).max:
             raise ValueError("gathered LIST column exceeds int32 offsets")
-        starts = offs[safe] if n else np.zeros(len(idx), np.int64)
-        child_idx = np.repeat(starts - new_offs[:-1], lens) + \
-            np.arange(new_offs[-1], dtype=np.int64)
-        child = gather_column(self.children[0],
-                              torch.from_numpy(child_idx).to(dev))
+        child_idx = torch.repeat_interleave(
+            starts - new_offs[:-1], lens, output_size=total) + \
+            torch.arange(total, device=dev)
+        child = gather_column(self.children[0], child_idx)
         valid = ok
         if self.validity is not None and n:
-            valid = valid & self.validity.cpu().numpy()[safe]
+            valid = valid & self.validity[safe]
         if indices_valid is not None:
-            valid = valid & indices_valid.cpu().numpy()
-        return Column.list_(child, new_offs.astype(np.int32), valid,
-                            device=dev)
+            valid = valid & indices_valid.to(dev)
+        return Column(self.dtype, validity=valid,
+                      offsets=new_offs.to(torch.int32), children=(child,))
 
     def __repr__(self):
         return (f"Column({self.dtype!r}, size={self.size}, "

@@ -11,9 +11,9 @@ stripes by the metadata section's statistics.
 Supported surface:
 - types: BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT, DOUBLE, STRING, CHAR,
   VARCHAR, BINARY (as LIST<UINT8>), DATE, TIMESTAMP(_INSTANT),
-  DECIMAL (<=18 digits -> DECIMAL32/64, >18 -> DECIMAL128), LIST of the
-  above.  STRUCT columns raise ``NotImplementedError``: the port's column
-  has no STRUCT yet (ROADMAP queue 1 item 4).
+  DECIMAL (<=18 digits -> DECIMAL32/64, >18 -> DECIMAL128), LIST and
+  STRUCT of the above, to any depth; MAP and UNION raise
+  ``NotImplementedError``.
 - encodings: DIRECT, DIRECT_V2, DICTIONARY, DICTIONARY_V2; integer runs in
   both RLEv1 and RLEv2 (SHORT_REPEAT / DIRECT / PATCHED_BASE / DELTA)
 - codecs: NONE, ZLIB (raw deflate), SNAPPY (``io/snappy.py``), and ZSTD
@@ -32,6 +32,7 @@ import torch
 from .. import device as _device
 from .. import dtypes as dt
 from ..columnar import Column, Table
+from ..ops.selection import _concat_columns, gather_column
 from ..utils.errors import CodecUnavailableError
 from . import snappy as _snappy_py
 
@@ -195,7 +196,13 @@ def _zigzag(v: np.ndarray) -> np.ndarray:
 
 
 def _int_rle_v1(buf: bytes, n: int, signed: bool) -> np.ndarray:
+    """RLEv1 integers: the headers walk in Python, one step a run; the
+    varints of every literal block decode together afterwards (a block's
+    end is its count-th varint terminator, found by binary search)."""
     out = np.empty(n + 131, np.int64)
+    raw = np.frombuffer(buf, np.uint8)
+    term = np.flatnonzero(raw < 128)    # last byte of any varint
+    lits = []                           # (first byte, last byte, out slot)
     total = pos = 0
     while total < n:
         h = buf[pos]
@@ -215,12 +222,31 @@ def _int_rle_v1(buf: bytes, n: int, signed: bool) -> np.ndarray:
             total += run
         else:  # 256-h literal varints
             cnt = 256 - h
-            for i in range(cnt):
-                v, pos = _uvarint(buf, pos)
-                if signed:
-                    v = (v >> 1) ^ -(v & 1)
-                out[total + i] = np.int64(np.uint64(v & (2**64 - 1)))
+            k = int(np.searchsorted(term, pos))
+            last = int(term[k + cnt - 1])
+            lits.append((pos, last, total, cnt))
+            pos = last + 1
             total += cnt
+    if lits:
+        first = np.array([a for a, _, _, _ in lits], np.int64)
+        nbytes = np.array([b - a + 1 for a, b, _, _ in lits], np.int64)
+        at = np.repeat(first - (np.cumsum(nbytes) - nbytes), nbytes) + \
+            np.arange(int(nbytes.sum()), dtype=np.int64)
+        body = raw[at]
+        ends = np.flatnonzero(body < 128)
+        vstart = np.concatenate(([0], ends[:-1] + 1))
+        shift = (np.arange(len(body), dtype=np.int64)
+                 - np.repeat(vstart, ends - vstart + 1)) * 7
+        parts = (body.astype(np.uint64) & np.uint64(0x7F)) << \
+            np.minimum(shift, 63).astype(np.uint64)
+        parts[shift > 63] = 0
+        vals = np.add.reduceat(parts, vstart) if len(body) else \
+            np.zeros(0, np.uint64)
+        if signed:
+            vals = (vals >> np.uint64(1)) ^ (np.uint64(0) - (vals & np.uint64(1)))
+        vals = vals.view(np.int64)
+        slots = np.concatenate([np.arange(t, t + c) for _, _, t, c in lits])
+        out[slots] = vals
     return out[:n]
 
 
@@ -685,7 +711,20 @@ class ORCFile:
             return Column.list_(child, offsets.astype(np.int32), valid,
                                 device=_HOST)
         if k == TK_STRUCT:
-            raise _struct_error()
+            # struct fields carry one entry per PRESENT struct row: decode
+            # each over nvals rows, then spread them to the n-row frame
+            # (a null struct row is a null row of every field)
+            kids = [self._decode_column(sub, bufs, encodings, nvals)
+                    for sub in t.subtypes]
+            if valid is not None:
+                idx = np.full(n, -1, np.int64)
+                idx[valid] = np.arange(nvals, dtype=np.int64)
+                kids = [gather_column(c, torch.from_numpy(idx))
+                        for c in kids]
+            return Column(dt.DType(dt.TypeId.STRUCT),
+                          validity=None if valid is None
+                          else torch.from_numpy(np.asarray(valid, np.bool_)),
+                          children=tuple(kids))
         raise NotImplementedError(f"unsupported ORC type kind {k}")
 
     def _empty_column(self, cid: int) -> Column:
@@ -703,7 +742,8 @@ class ORCFile:
         if odt.id == dt.TypeId.DECIMAL128:
             return Column.fixed(odt, np.zeros((0, 2), np.int64), device=_HOST)
         if odt.id == dt.TypeId.STRUCT:
-            raise _struct_error()
+            return Column(odt, children=tuple(self._empty_column(s)
+                                              for s in t.subtypes))
         return Column.fixed(odt, np.zeros(0, odt.storage), device=_HOST)
 
     def _read_stripe_host(self, i: int, columns=None) -> Table:
@@ -744,38 +784,6 @@ class ORCFile:
         cols = [_concat_columns([p.columns[i] for p in parts])
                 for i in range(len(names))]
         return Table(cols, names).to(dev)
-
-
-def _struct_error() -> NotImplementedError:
-    return NotImplementedError(
-        "ORC STRUCT columns are not ported: the port's column has no STRUCT "
-        "yet (ROADMAP queue 1 item 4); project the other columns")
-
-
-def _concat_columns(parts: list) -> Column:
-    """Host-side stripe concat of host columns (one device copy follows)."""
-    any_valid = any(p.validity is not None for p in parts)
-    valid = torch.cat([p.valid_mask() for p in parts]) if any_valid else None
-    d0 = parts[0].dtype
-    if d0.is_string or d0.id == dt.TypeId.LIST:
-        offs = [parts[0].offsets.to(torch.int64)]
-        base = int(offs[0][-1])
-        for p in parts[1:]:
-            o = p.offsets.to(torch.int64)
-            offs.append(o[1:] + base)
-            base += int(o[-1])
-        offsets = torch.cat(offs)
-        if int(offsets[-1]) > np.iinfo(np.int32).max:
-            raise ValueError("concatenated column exceeds int32 offsets")
-        if d0.is_string:
-            chars = torch.cat([p.data for p in parts])
-            return Column.string(chars, offsets.to(torch.int32), valid,
-                                 device=_HOST)
-        child = _concat_columns([p.children[0] for p in parts])
-        return Column.list_(child, offsets.to(torch.int32), valid,
-                            device=_HOST)
-    return Column(d0, data=torch.cat([p.data for p in parts]),
-                  validity=valid)
 
 
 def read_orc(path, columns=None, device=_device.DEFAULT) -> Table:

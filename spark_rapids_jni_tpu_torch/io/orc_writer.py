@@ -4,11 +4,10 @@ The port of ``spark_rapids_jni_tpu/io/orc_writer.py``, byte for byte the
 same files.  Emits version 0.12 files with DIRECT (RLEv1) encodings, the
 simplest encoding every ORC reader supports, covering the scalar surface
 the reader decodes (ints, floats, bools, strings, dates, timestamps,
-decimals) and LIST columns.  Codecs: none and ZLIB (stdlib), SNAPPY and
+decimals), LIST and STRUCT columns.  Codecs: none and ZLIB (stdlib), SNAPPY and
 ZSTD through pyarrow's compressors where pyarrow can be imported; without
-it they raise ``CodecUnavailableError``.  STRUCT columns raise
-``NotImplementedError`` until the port's column has STRUCT (ROADMAP queue 1
-item 4).  The table is copied to the host first: encoding is host work.
+it they raise ``CodecUnavailableError``.  LIST and STRUCT columns nest to
+any depth.  The table is copied to the host first: encoding is host work.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from .. import dtypes as dt
 from ..columnar import Table
 from ..ops.selection import gather_column
 from ..utils.errors import CodecUnavailableError
+from .parquet import arrow_codec
 from .orc import (COMP_NONE, COMP_SNAPPY, COMP_ZLIB, COMP_ZSTD, SK_DATA, SK_LENGTH, SK_PRESENT,
                   SK_SECONDARY, TK_BOOLEAN, TK_BYTE, TK_DATE, TK_DECIMAL,
                   TK_DOUBLE, TK_FLOAT, TK_INT, TK_LIST, TK_LONG, TK_SHORT,
@@ -87,39 +87,56 @@ def _zigzag_enc(v: int) -> int:
     return (v << 1) if v >= 0 else ((-v) << 1) - 1
 
 
+def _varints(u: np.ndarray) -> tuple[np.ndarray, list]:
+    """LEB128 bytes of uint64 values laid end to end, and each value's
+    first byte (n + 1 offsets)."""
+    nb = np.ones(len(u), np.int64)
+    x = u >> np.uint64(7)
+    while x.any():
+        nb += x != 0
+        x >>= np.uint64(7)
+    offs = np.zeros(len(u) + 1, np.int64)
+    np.cumsum(nb, out=offs[1:])
+    j = np.arange(int(offs[-1]), dtype=np.int64) - np.repeat(offs[:-1], nb)
+    out = ((np.repeat(u, nb) >> (7 * j).astype(np.uint64)) &
+           np.uint64(0x7F)).astype(np.uint8)
+    out[j < np.repeat(nb, nb) - 1] |= 0x80
+    return out, offs.tolist()
+
+
 def _int_rle_v1(vals, signed: bool) -> bytes:
-    """RLEv1: constant runs (delta 0) of 3..130, literal varints else."""
-    out = bytearray()
-    vals = [int(v) for v in vals]
-    n = len(vals)
+    """RLEv1: constant runs (delta 0) of 3..130, literal varints else.
 
-    def emit_varint(v: int):
-        _enc_varint(out, _zigzag_enc(v) if signed else v & ((1 << 64) - 1))
-
+    The segmentation is the greedy one, walked a segment (not a value) at
+    a time; every value's varint is encoded at once beforehand."""
+    a = np.asarray(vals)
+    a = a.astype(np.uint64).view(np.int64) if a.dtype.kind == "u" \
+        else a.astype(np.int64)
+    n = len(a)
+    if n == 0:
+        return b""
+    u = a.view(np.uint64)
+    if signed:  # zigzag
+        u = (u << np.uint64(1)) ^ (a >> np.int64(63)).view(np.uint64)
+    enc, offs = _varints(u)
+    enc = enc.tobytes()
+    same = a[1:] == a[:-1]
+    bounds = np.concatenate(([0], np.flatnonzero(~same) + 1, [n]))
+    streak_end = np.repeat(bounds[1:], np.diff(bounds)).tolist()
+    r3 = np.flatnonzero(same[:-1] & same[1:])  # a[p] == a[p+1] == a[p+2]
+    pieces = []
     i = 0
     while i < n:
-        run = 1
-        while i + run < n and run < 130 and vals[i + run] == vals[i]:
-            run += 1
+        run = min(130, streak_end[i] - i)
         if run >= 3:
-            out.append(run - 3)
-            out.append(0)  # delta 0
-            emit_varint(vals[i])
+            pieces += [bytes((run - 3, 0)), enc[offs[i]:offs[i + 1]]]
             i += run
             continue
-        lit_start = i
-        while i < n and i - lit_start < 128:
-            nxt = 1
-            while i + nxt < n and nxt < 3 and vals[i + nxt] == vals[i]:
-                nxt += 1
-            if nxt >= 3:
-                break
-            i += 1
-        cnt = i - lit_start
-        out.append(256 - cnt)
-        for j in range(lit_start, i):
-            emit_varint(vals[j])
-    return bytes(out)
+        k = int(np.searchsorted(r3, i))
+        cnt = min(128, (int(r3[k]) if k < len(r3) else n) - i)
+        pieces += [bytes((256 - cnt,)), enc[offs[i]:offs[i + cnt]]]
+        i += cnt
+    return b"".join(pieces)
 
 
 def _varint_bigint(out: bytearray, v: int):
@@ -206,11 +223,6 @@ def _encode_nanos(nanos) -> list:
         else:
             out.append(nv << 3)
     return out
-
-
-def _has_struct(col) -> bool:
-    return col.dtype.id == dt.TypeId.STRUCT or \
-        any(_has_struct(c) for c in col.children)
 
 
 def _subtree_size(col) -> int:
@@ -390,32 +402,33 @@ def _column_streams(col, dtype: dt.DType) -> list[tuple[int, bytes]]:
     return streams
 
 
-try:
-    import pyarrow as _pa
-    _SNAPPY_C = _pa.Codec("snappy")  # compressor (decoder lives in io.snappy)
-    _ZSTD_C = _pa.Codec("zstd")
-    # the system allocator, as io/parquet.py's codec uses it
-    _ARROW_POOL = _pa.system_memory_pool()
-except Exception:  # a host without pyarrow: none and zlib only
-    _SNAPPY_C = None
-    _ZSTD_C = None
-    _ARROW_POOL = None
+# SNAPPY and ZSTD compress through pyarrow's codecs, looked up when a
+# stream needs one (never at import); None means this host has no such
+# compressor (a host without pyarrow: none and zlib only)
+_FROM_ARROW = object()
+_SNAPPY_C = _ZSTD_C = _FROM_ARROW
+
+
+def _compressor(kind: int):
+    """(pyarrow compressor or None, memory pool) for SNAPPY or ZSTD."""
+    c = _SNAPPY_C if kind == COMP_SNAPPY else _ZSTD_C
+    if c is not _FROM_ARROW:
+        return c, None
+    return arrow_codec("snappy" if kind == COMP_SNAPPY else "zstd")
 
 
 def _compress_stream(raw: bytes, kind: int, block: int) -> bytes:
     if kind == COMP_NONE:
         return raw
+    codec, pool = (None, None) if kind == COMP_ZLIB else _compressor(kind)
     out = bytearray()
     for i in range(0, len(raw), block):
         chunk = raw[i:i + block]
         if kind == COMP_ZLIB:
             comp = zlib.compressobj(6, zlib.DEFLATED, -15)
             cb = comp.compress(chunk) + comp.flush()
-        elif kind == COMP_ZSTD:
-            cb = _ZSTD_C.compress(chunk, memory_pool=_ARROW_POOL).to_pybytes()
-        else:  # COMP_SNAPPY
-            cb = _SNAPPY_C.compress(chunk,
-                                    memory_pool=_ARROW_POOL).to_pybytes()
+        else:  # COMP_ZSTD, COMP_SNAPPY
+            cb = codec.compress(chunk, memory_pool=pool).to_pybytes()
         if len(cb) < len(chunk):
             h = len(cb) << 1
             out += bytes([h & 0xFF, (h >> 8) & 0xFF, (h >> 16) & 0xFF])
@@ -428,25 +441,23 @@ def _compress_stream(raw: bytes, kind: int, block: int) -> bytes:
 
 
 def write_orc(table: Table, path, compression: str = "none",
-              stripe_rows: int = 1 << 20):
+              stripe_rows: int = 1 << 20,
+              struct_fields: dict | None = None):
     """Write a Table as an ORC 0.12 file readable by any ORC reader.
 
-    LIST columns write the standard nested ORC encoding (pre-order column
-    ids, LENGTH streams and present-row-filtered children).
+    LIST and STRUCT columns write the standard nested ORC encoding
+    (pre-order column ids, LENGTH streams and present-row-filtered
+    children).  ``struct_fields`` maps a STRUCT column name to its field
+    names (a Column's children are unnamed; default f0, f1, ...).
     ``compression``: "none", "zlib", or "snappy"/"zstd" (pyarrow's
     compressors).  ``stripe_rows`` rows a stripe."""
     kinds = {"none": COMP_NONE, "uncompressed": COMP_NONE,
              "zlib": COMP_ZLIB, "snappy": COMP_SNAPPY, "zstd": COMP_ZSTD}
     comp = kinds[compression.lower()]
-    if (comp == COMP_SNAPPY and _SNAPPY_C is None) or \
-            (comp == COMP_ZSTD and _ZSTD_C is None):
+    if comp in (COMP_SNAPPY, COMP_ZSTD) and _compressor(comp)[0] is None:
         raise CodecUnavailableError(
             f"ORC {compression} compression needs pyarrow's compressor, "
             "which this host does not have; use zlib or none")
-    if any(_has_struct(c) for c in table.columns):
-        raise NotImplementedError(
-            "ORC STRUCT columns are not ported: the port's column has no "
-            "STRUCT yet (ROADMAP queue 1 item 4)")
     table = table.to("cpu")
     block = 64 * 1024
     names = [nm or f"c{i}" for i, nm in enumerate(
@@ -471,7 +482,8 @@ def write_orc(table: Table, path, compression: str = "none",
     _pb_bytes(types, 4, bytes(root))  # footer field 4 = repeated Type
     nid = 1
     for c, nm in zip(table.columns, names):
-        nid = _append_types(types, c, nid)
+        nid = _append_types(types, c, nid,
+                            (struct_fields or {}).get(nm))
 
     body = bytearray()
     body += _MAGIC  # header

@@ -12,7 +12,7 @@ The port of ``spark_rapids_jni_tpu/io/parquet.py``.  Two routes:
   ``kernels/parquet_decode.py``).  Groups it cannot take fall back to the
   host route with a reason.
 
-Supported surface (flat schemas, the Spark-SQL scan shape):
+Supported surface (the Spark-SQL scan shape):
 - physical types: BOOLEAN, INT32, INT64, INT96 (legacy timestamps), FLOAT,
   DOUBLE, BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY (decimals)
 - logical/converted: UTF8->STRING, DATE, TIMESTAMP millis/micros/nanos,
@@ -20,11 +20,15 @@ Supported surface (flat schemas, the Spark-SQL scan shape):
 - encodings: PLAIN, RLE (booleans + levels), PLAIN_DICTIONARY /
   RLE_DICTIONARY, data pages V1 + V2
 - codecs: UNCOMPRESSED, SNAPPY (GZIP and ZSTD on the host route)
+- nesting: standard 3-level LIST groups to any depth, and STRUCT groups of
+  leaf fields (nulls at both levels); both assemble on the host route from
+  the repetition and definition levels.  A row group whose projection
+  holds one re-plans from the device route to the host route with the
+  reason ``"nested"``.  A group nested inside a struct and legacy 2-level
+  lists are refused, as in the JAX package.
 
-LIST and STRUCT columns parse in the footer but do not decode yet: reading
-one raises ``NotImplementedError``.  Counters (``utils.tracing``) keep the
-JAX package's names: ``io.parquet.*``, ``io.device_decode.*``,
-``io.footer_parses``.
+Counters (``utils.tracing``) keep the JAX package's names:
+``io.parquet.*``, ``io.device_decode.*``, ``io.footer_parses``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import mmap
 import os
+import struct
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -73,29 +78,32 @@ _PLAIN_NP = {
 
 _uvarint = snappy._uvarint  # one LEB128 decoder for the whole io package
 
-# Host snappy: pyarrow's codec where pyarrow is importable (it gives the
-# same bytes as io.snappy, faster); io.snappy otherwise, as on a host
-# without pyarrow.  Its output buffers come from the system allocator: in a
-# process that also holds torch, pyarrow's default (jemalloc) pool
-# segfaulted now and then inside ``decompress`` on a bridge server's
-# connection thread.
-try:
-    import pyarrow as _pa
-    _SNAPPY_NATIVE = _pa.Codec("snappy")
-    _ARROW_POOL = _pa.system_memory_pool()
-except Exception:
-    _SNAPPY_NATIVE = None
-    _ARROW_POOL = None
+
+def arrow_codec(name: str):
+    """``(pyarrow Codec, memory pool)`` where pyarrow is importable, else
+    ``(None, None)``; imported on first use, never at module import.
+
+    pyarrow's codecs give the same bytes as io.snappy, faster.  Their
+    output buffers come from the system allocator: in a process that also
+    holds torch, pyarrow's default (jemalloc) pool segfaulted now and then
+    inside ``decompress`` on a bridge server's connection thread.
+    """
+    try:
+        import pyarrow as pa
+        return pa.Codec(name), pa.system_memory_pool()
+    except Exception:  # no pyarrow on this host
+        return None, None
 
 
 def _decompress(page: bytes, codec: int, uncompressed_size: int) -> bytes:
     if codec == CODEC_UNCOMPRESSED:
         return page
     if codec == CODEC_SNAPPY:
-        if _SNAPPY_NATIVE is not None:
-            out = _SNAPPY_NATIVE.decompress(
+        native, pool = arrow_codec("snappy")
+        if native is not None:
+            out = native.decompress(
                 page, decompressed_size=uncompressed_size,
-                memory_pool=_ARROW_POOL).to_pybytes()
+                memory_pool=pool).to_pybytes()
         else:
             # literal-only pages (high-entropy / dict-encoded data) collapse
             # to slice copies; anything else hits the byte-exact decoder
@@ -110,10 +118,15 @@ def _decompress(page: bytes, codec: int, uncompressed_size: int) -> bytes:
             raise ValueError("gzip page size mismatch")
         return out
     if codec == CODEC_ZSTD:
-        import pyarrow as _pa
-        out = _pa.Codec("zstd").decompress(
+        native, pool = arrow_codec("zstd")
+        if native is None:
+            from ..utils.errors import CodecUnavailableError
+            raise CodecUnavailableError(
+                "a ZSTD parquet page needs pyarrow's codec, which this host "
+                "does not have")
+        out = native.decompress(
             page, decompressed_size=uncompressed_size,
-            memory_pool=_ARROW_POOL).to_pybytes()
+            memory_pool=pool).to_pybytes()
         if len(out) != uncompressed_size:
             raise ValueError("zstd page size mismatch")
         return out
@@ -166,18 +179,26 @@ def _rle_bitpacked_hybrid(buf, bit_width: int, num_values: int) -> np.ndarray:
 
 
 def _parse_byte_array(buf, num_values: int):
-    """PLAIN BYTE_ARRAY: [u32 len][bytes]... → (chars u8[], lens i32[])."""
-    lens = np.empty(num_values, np.int64)
-    pieces = []
+    """PLAIN BYTE_ARRAY: [u32 len][bytes]... → (chars u8[], lens i32[]).
+
+    The walk from length to length is sequential; it collects only the
+    lengths, and the bytes are gathered at once afterwards."""
+    unpack = struct.Struct("<I").unpack_from
+    lens = []
     pos = 0
-    mv = memoryview(buf)
-    for i in range(num_values):
-        ln = int.from_bytes(mv[pos:pos + 4], "little")
-        lens[i] = ln
-        pieces.append(mv[pos + 4:pos + 4 + ln])
+    for _ in range(num_values):
+        ln = unpack(buf, pos)[0]
+        lens.append(ln)
         pos += 4 + ln
-    chars = np.frombuffer(b"".join(pieces), np.uint8)
-    return chars, lens.astype(np.int32)
+    ln = np.array(lens, np.int64)
+    rec = ln + 4
+    starts = np.cumsum(rec) - rec + 4          # each value's first byte
+    total = int(ln.sum())
+    src = np.repeat(starts - (np.cumsum(ln) - ln), ln) + \
+        np.arange(total, dtype=np.int64)
+    chars = np.frombuffer(buf, np.uint8, pos)[src] if total else \
+        np.zeros(0, np.uint8)
+    return chars, ln.astype(np.int32)
 
 
 def _int96_to_ns(raw: np.ndarray) -> np.ndarray:
@@ -467,20 +488,43 @@ class _HostColumn:
     chars: np.ndarray | None       # STRING: char buffer (nulls contribute 0 B)
     offsets: np.ndarray | None     # STRING: int32[n+1]
     validity: np.ndarray | None    # bool[n] or None
+    child: "_HostColumn | None" = None   # LIST: element chunk
+    loffsets: np.ndarray | None = None   # LIST: int32[n+1] row offsets
+    children: "list | None" = None       # STRUCT: field chunks
 
     @property
     def num_rows(self):
+        if self.children is not None:
+            return self.children[0].num_rows
+        if self.loffsets is not None:
+            return len(self.loffsets) - 1
         return (len(self.offsets) - 1 if self.offsets is not None
                 else len(self.values))
 
     def nbytes_estimate(self):
-        per = (self.chars.nbytes + self.offsets.nbytes
-               if self.chars is not None else self.values.nbytes)
+        if self.children is not None:
+            per = sum(c.nbytes_estimate() for c in self.children)
+        elif self.loffsets is not None:
+            per = self.child.nbytes_estimate() + self.loffsets.nbytes
+        else:
+            per = (self.chars.nbytes + self.offsets.nbytes
+                   if self.chars is not None else self.values.nbytes)
         if self.validity is not None:
             per += self.validity.nbytes
         return per
 
     def slice(self, a: int, b: int) -> "_HostColumn":
+        valid = None if self.validity is None else self.validity[a:b]
+        if self.children is not None:
+            return _HostColumn(self.schema, None, None, None, valid,
+                               children=[c.slice(a, b)
+                                         for c in self.children])
+        if self.loffsets is not None:
+            lo = self.loffsets[a:b + 1]
+            return _HostColumn(self.schema, None, None, None, valid,
+                               child=self.child.slice(int(lo[0]),
+                                                      int(lo[-1])),
+                               loffsets=(lo - lo[0]).astype(np.int32))
         if self.offsets is not None:
             offs = self.offsets[a:b + 1]
             chars = self.chars[offs[0]:offs[-1]]
@@ -494,16 +538,21 @@ class _HostColumn:
 
     def to_column(self, device=_device.DEFAULT) -> Column:
         s = self.schema
+        if self.children is not None:
+            dev = _device.resolve(device)
+            return Column(dt.DType(dt.TypeId.STRUCT),
+                          validity=None if self.validity is None
+                          else torch.from_numpy(self.validity).to(dev),
+                          children=tuple(c.to_column(dev)
+                                         for c in self.children))
+        if self.loffsets is not None:
+            return Column.list_(self.child.to_column(device), self.loffsets,
+                                self.validity, device=device)
         if s.dtype.is_string:
             return Column.string(self.chars, self.offsets, self.validity,
                                  device=device)
         return Column.fixed(s.dtype, self.values, self.validity,
                             device=device)
-
-
-def _nested_unsupported(s: ColumnSchema):
-    return NotImplementedError(
-        f"column {s.name!r}: LIST and STRUCT columns are not ported yet")
 
 
 def _decode_plain(schema: ColumnSchema, buf: bytes, nvals: int):
@@ -595,9 +644,6 @@ class _ChunkDecoder:
         self.dict_vals = None
 
     def run(self) -> _HostColumn:
-        if self.schema.is_list or self.schema.list_levels or \
-                self.schema.extra_def:
-            raise _nested_unsupported(self.schema)
         meta = self.meta
         pos = meta.start_offset
         end = meta.start_offset + meta.total_compressed
@@ -629,6 +675,16 @@ class _ChunkDecoder:
                 continue
             else:
                 raise NotImplementedError(f"page type {ptype}")
+        # a struct's validity (in _decode_group) comes from its first
+        # field's raw def levels; only struct members (extra_def > 0) keep
+        # them
+        self.def_stream = (np.concatenate(defs)
+                           if self.schema.extra_def and defs
+                           and defs[0] is not None else None)
+        if self.schema.list_levels:
+            return self._assemble_list_nested(reps, defs, vals)
+        if self.schema.is_list:
+            return self._assemble_list(reps, defs, vals)
         return self._assemble(defs, vals)
 
     # DataPageHeader: 1 num_values, 2 encoding, 3 def-level enc, 4 rep enc
@@ -715,6 +771,99 @@ class _ChunkDecoder:
         values, chars, offsets = _scatter_values(s, nrows, vals, valid)
         return _HostColumn(s, values, chars, offsets, valid)
 
+    def _element(self, deff, slot, vals) -> _HostColumn:
+        """The leaf elements of a LIST chunk: one per element slot, null
+        where the slot's def level is below the maximum."""
+        s = self.schema
+        elem_valid = None
+        if s.optional:
+            elem_valid = (deff == s.max_def)[slot]
+            if bool(elem_valid.all()):
+                elem_valid = None
+        ecs = ColumnSchema(s.name + ".element", s.physical, s.type_length,
+                           optional=s.optional, dtype=s.dtype)
+        values, chars, offsets = _scatter_values(s, int(slot.sum()), vals,
+                                                 elem_valid)
+        return _HostColumn(ecs, values, chars, offsets, elem_valid)
+
+    def _assemble_list(self, reps, defs, vals) -> _HostColumn:
+        """LIST<element> rows from the rep/def level streams of the standard
+        3-level shape (max_def = md): rep 0 starts a row; def >= the
+        element-slot level means a slot exists (a null element iff
+        def < md); lower defs encode an empty list or a null row."""
+        s = self.schema
+        slot_def = s.max_def - (1 if s.optional else 0)
+        rep = np.concatenate(reps) if reps else np.zeros(0, np.int32)
+        deff = np.concatenate(defs) if defs else np.zeros(0, np.int32)
+        starts = np.flatnonzero(rep == 0)
+        nrows = len(starts)
+        row_valid = None
+        if s.list_optional:
+            row_valid = deff[starts] >= 1
+            if bool(row_valid.all()):
+                row_valid = None
+        slot = deff >= slot_def
+        cum = np.concatenate(([0], np.cumsum(slot.astype(np.int64))))
+        seg_end = np.concatenate((starts[1:], [len(rep)])) if nrows else \
+            np.zeros(0, np.int64)
+        loffsets = np.zeros(nrows + 1, np.int64)
+        np.cumsum(cum[seg_end] - cum[starts], out=loffsets[1:])
+        if loffsets[-1] > np.iinfo(np.int32).max:
+            raise ValueError("list chunk exceeds int32 offsets; "
+                             "use a smaller row-group size")
+        return _HostColumn(s, None, None, None, row_valid,
+                           child=self._element(deff, slot, vals),
+                           loffsets=loffsets.astype(np.int32))
+
+    def _assemble_list_nested(self, reps, defs, vals) -> _HostColumn:
+        """LIST rows of any depth from the rep/def level streams.
+
+        With per-level group optionality o_1..o_D, C_k = sum_{j<=k}(1 + o_j)
+        is the def level at which an element SLOT exists at depth k; the
+        level-k list hanging at a depth-(k-1) slot is null iff
+        def < C_{k-1} + o_k, and every event with rep < k opens a level-k
+        segment (dead segments, whose first def < C_{k-1}, belong to no
+        parent slot and are dropped)."""
+        s = self.schema
+        o = [1 if x else 0 for x in s.list_levels]
+        C = [0]
+        for ok in o:
+            C.append(C[-1] + 1 + ok)
+        rep = np.concatenate(reps) if reps else np.zeros(0, np.int32)
+        deff = np.concatenate(defs) if defs else np.zeros(0, np.int32)
+        nev = len(rep)
+        top = prev = None
+        for k in range(1, len(o) + 1):
+            seg = np.flatnonzero(rep < k)
+            first_def = deff[seg]
+            keep = first_def >= C[k - 1]       # parent slot exists
+            # a new level-k element starts only where rep <= k (deeper rep
+            # values continue a slot of this level)
+            slot = (rep <= k) & (deff >= C[k])
+            cs = np.concatenate(([0], np.cumsum(slot, dtype=np.int64)))
+            seg_end = np.concatenate((seg[1:], [nev])) if len(seg) else \
+                np.zeros(0, np.int64)
+            lens = (cs[seg_end] - cs[seg])[keep]
+            valid_k = (first_def >= C[k - 1] + o[k - 1])[keep]
+            loff = np.zeros(len(lens) + 1, np.int64)
+            np.cumsum(lens, out=loff[1:])
+            if loff[-1] > np.iinfo(np.int32).max:
+                raise ValueError("nested list chunk exceeds int32 offsets")
+            lcs = ColumnSchema(s.name + ".list" * (k - 1), s.physical,
+                               s.type_length, optional=s.optional,
+                               dtype=s.dtype, is_list=True,
+                               list_optional=bool(o[k - 1]))
+            hc = _HostColumn(lcs, None, None, None,
+                             None if bool(valid_k.all()) else valid_k,
+                             loffsets=loff.astype(np.int32))
+            if prev is None:
+                top = hc
+            else:
+                prev.child = hc
+            prev = hc
+        prev.child = self._element(deff, deff >= C[-1], vals)
+        return top
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -777,9 +926,21 @@ class ParquetFile:
         g = self.row_groups[gi]
         out = []
         for i in self._column_indices(columns):
-            if self.schema[i].is_struct:
-                raise _nested_unsupported(self.schema[i])
-            out.append(_ChunkDecoder(self._buf, g.chunks[i]).run())
+            s = self.schema[i]
+            if not s.is_struct:
+                out.append(_ChunkDecoder(self._buf, g.chunks[i]).run())
+                continue
+            kids, svalid = [], None
+            for ck in g.chunks[i]:
+                dec = _ChunkDecoder(self._buf, ck)
+                kids.append(dec.run())
+                if (svalid is None and s.struct_optional
+                        and dec.def_stream is not None):
+                    svalid = dec.def_stream >= 1
+            if svalid is not None and bool(svalid.all()):
+                svalid = None
+            out.append(_HostColumn(s, None, None, None, svalid,
+                                   children=kids))
         return out
 
     def group_stats(self, gi: int, column: str):
@@ -864,8 +1025,15 @@ class ParquetFile:
 
 
 def _empty_host(s: ColumnSchema) -> _HostColumn:
-    if s.is_struct or s.is_list:
-        raise _nested_unsupported(s)
+    if s.is_struct:
+        return _HostColumn(s, None, None, None, None,
+                           children=[_empty_host(f) for f in s.fields])
+    if s.is_list:
+        ecs = ColumnSchema(s.name + ".element", s.physical, s.type_length,
+                           optional=s.optional, dtype=s.dtype)
+        return _HostColumn(s, None, None, None, None,
+                           child=_empty_host(ecs),
+                           loffsets=np.zeros(1, np.int32))
     if s.dtype.is_string:
         return _HostColumn(s, None, np.zeros(0, np.uint8),
                            np.zeros(1, np.int32), None)
@@ -879,19 +1047,34 @@ def _concat_host(parts: list[_HostColumn]) -> _HostColumn:
         [p.validity if p.validity is not None
          else np.ones(p.num_rows, np.bool_) for p in parts]) \
         if has_valid else None
+    if s.is_struct:
+        kids = [_concat_host([p.children[i] for p in parts])
+                for i in range(len(s.fields))]
+        return _HostColumn(s, None, None, None, valid, children=kids)
+    if s.is_list:
+        loffsets = _rebased([p.loffsets for p in parts], "list")
+        return _HostColumn(s, None, None, None, valid,
+                           child=_concat_host([p.child for p in parts]),
+                           loffsets=loffsets)
     if s.dtype.is_string:
-        chars = np.concatenate([p.chars for p in parts])
-        offs = [parts[0].offsets.astype(np.int64)]
-        base = int(parts[0].offsets[-1])
-        for p in parts[1:]:
-            offs.append(p.offsets[1:].astype(np.int64) + base)
-            base += int(p.offsets[-1])
-        offsets = np.concatenate(offs)
-        if offsets[-1] > np.iinfo(np.int32).max:
-            raise ValueError("concatenated string column exceeds int32 offsets")
-        return _HostColumn(s, None, chars, offsets.astype(np.int32), valid)
+        return _HostColumn(s, None, np.concatenate([p.chars for p in parts]),
+                           _rebased([p.offsets for p in parts], "string"),
+                           valid)
     return _HostColumn(s, np.concatenate([p.values for p in parts]),
                        None, None, valid)
+
+
+def _rebased(offsets: list, what: str) -> np.ndarray:
+    """The int32 offsets of parts laid end to end."""
+    offs = [offsets[0].astype(np.int64)]
+    base = int(offsets[0][-1])
+    for o in offsets[1:]:
+        offs.append(o[1:].astype(np.int64) + base)
+        base += int(o[-1])
+    out = np.concatenate(offs)
+    if out[-1] > np.iinfo(np.int32).max:
+        raise ValueError(f"concatenated {what} column exceeds int32 offsets")
+    return out.astype(np.int32)
 
 
 def read_parquet(path, columns=None, device=_device.DEFAULT) -> Table:
@@ -1320,6 +1503,9 @@ class ParquetChunkedReader:
                 yield ("dev", chunk, None)
             else:
                 tracing.count("io.device_decode.fallbacks")
+                # one counter a reason too: the port's ledger of why a
+                # group went to the host ("nested", "codec", ...)
+                tracing.count("io.device_decode.fallback." + reason)
                 for sl in self._host_slices_group(gi):
                     yield ("host", self._stage_one(sl), reason)
 

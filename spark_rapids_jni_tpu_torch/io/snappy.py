@@ -1,7 +1,10 @@
-"""Snappy raw-block decompression (Parquet's default codec).
+"""Snappy raw blocks (Parquet's default codec): decompression, and a
+compressor for hosts without pyarrow.
 
-A copy of ``spark_rapids_jni_tpu/io/snappy.py`` (the port imports nothing of
-that package).
+The decoder is a copy of ``spark_rapids_jni_tpu/io/snappy.py`` (the port
+imports nothing of that package).  :func:`compress` is the port's own: the
+Parquet writer takes pyarrow's snappy codec where pyarrow can be imported
+(the JAX writer's bytes) and this encoder where it cannot.
 
 Pure-Python decoder for the snappy *raw* format pyarrow/parquet-mr emit per
 page: a varint uncompressed length, then a tag stream of literals and
@@ -18,6 +21,11 @@ O(n log n) slice ops, not O(n) python-level byte writes.
 """
 
 from __future__ import annotations
+
+import numpy as np
+
+FRAGMENT = 1 << 16  # snappy compresses 64 KiB fragments
+COPY_BLOCK = 64     # the block compress(copies=True) matches
 
 
 def _uvarint(buf, pos: int):
@@ -152,3 +160,60 @@ def decompress(src: bytes) -> bytes:
     if dpos != n:
         raise ValueError(f"corrupt snappy stream: wrote {dpos}, header said {n}")
     return bytes(dst)
+
+
+def _varint_bytes(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def compress(data: bytes, copies: bool = False) -> bytes:
+    """A snappy raw block of ``data``: literal tokens of at most one 64 KiB
+    fragment, plus (``copies``) a copy token wherever a 64-byte block
+    repeats an earlier block of its fragment.
+
+    Literal-only output is a valid block that any snappy reader takes, in
+    one pass of slice copies; ``copies`` finds the repeats with one
+    ``np.unique`` a fragment, so it costs far more time.
+    """
+    out = [_varint_bytes(len(data))]
+
+    def literal(b):
+        n = len(b) - 1
+        if n < 60:
+            out.append(bytes([n << 2]))
+        else:
+            nb = (n.bit_length() + 7) // 8
+            out.append(bytes([(59 + nb) << 2]) + n.to_bytes(nb, "little"))
+        out.append(b)
+
+    u = np.frombuffer(data, np.uint8)
+    for f0 in range(0, len(data), FRAGMENT):
+        frag = data[f0:f0 + FRAGMENT]
+        nb = len(frag) // COPY_BLOCK if copies else 0
+        rep, rep_src = [], []
+        if nb > 1:
+            blocks = u[f0:f0 + nb * COPY_BLOCK].reshape(nb, COPY_BLOCK)
+            _, first, inv = np.unique(
+                np.ascontiguousarray(blocks).view(f"V{COPY_BLOCK}")[:, 0],
+                return_index=True, return_inverse=True)
+            src = first[inv.reshape(-1)]
+            at = np.flatnonzero(src < np.arange(nb))
+            rep, rep_src = at.tolist(), src[at].tolist()
+        pos = 0
+        for j, sj in zip(rep, rep_src):
+            at = j * COPY_BLOCK
+            if at > pos:
+                literal(frag[pos:at])
+            off = (j - sj) * COPY_BLOCK
+            out.append(bytes([((COPY_BLOCK - 1) << 2) | 2])
+                       + off.to_bytes(2, "little"))
+            pos = at + COPY_BLOCK
+        if pos < len(frag):
+            literal(frag[pos:])
+    return b"".join(out)

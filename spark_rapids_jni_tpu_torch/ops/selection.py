@@ -1,6 +1,6 @@
-"""Row selection: gather (string-aware), boolean-mask filter, sort, concat,
-slice — the cudf primitives the op layer builds on, with cudf's NULLIFY
-out-of-bounds gather policy."""
+"""Row selection: gather (STRING, LIST and STRUCT aware), boolean-mask
+filter, sort, concat, slice — the cudf primitives the op layer builds on,
+with cudf's NULLIFY out-of-bounds gather policy."""
 
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ def _gather_string(col: Column, indices: torch.Tensor,
 
 
 def gather_column(col: Column, indices, indices_valid=None) -> Column:
-    """Row gather with cudf NULLIFY semantics; supports STRING columns."""
+    """Row gather with cudf NULLIFY semantics, for every column kind."""
     if col.dtype.is_string:
         return _gather_string(col, indices, indices_valid)
     return col.gather(indices, indices_valid)
@@ -112,6 +112,10 @@ def _concat_columns(parts: list[Column]) -> Column:
     valid = None
     if any(p.validity is not None for p in parts):
         valid = torch.cat([p.valid_mask() for p in parts])
+    if d0.id == TypeId.STRUCT:
+        return Column(d0, validity=valid, children=tuple(
+            _concat_columns([p.children[i] for p in parts])
+            for i in range(len(parts[0].children))))
     if d0.is_string or d0.id == TypeId.LIST:
         offs = [parts[0].offsets.to(torch.int64)]
         base = offs[0][-1]

@@ -3,12 +3,13 @@
 
 Reader: pyarrow writes each file (the cases of ``tests/test_orc.py``, at
 smaller sizes); both packages read it and the tables must agree bit for bit
-(data, validity, offsets, chars, LIST children).  Writer: the cases of
-``tests/test_orc_writer.py`` except STRUCT; both writers write the same
-seeded table and the files must be byte-identical, both readers must read
-the port's file bit for bit, and pyarrow must read it back.  Tolerance:
-none.  STRUCT raises a typed error in the port; ZSTD and SNAPPY raise
-``CodecUnavailableError`` on a host without pyarrow.
+(data, validity, offsets, chars, LIST children).  Writer: the flat and LIST
+cases of ``tests/test_orc_writer.py`` (its STRUCT cases are in
+``test_torch_orc_struct.py``); both writers write the same seeded table and
+the files must be byte-identical, both readers must read the port's file
+bit for bit, and pyarrow must read it back.  Tolerance: none.  MAP raises
+in both packages; ZSTD and SNAPPY raise ``CodecUnavailableError`` on a host
+without pyarrow.
 """
 
 import datetime
@@ -211,16 +212,29 @@ def test_predicate_validation(tmp_path):
 
 
 def test_struct_raises_typed_error_and_projects(tmp_path):
+    """A STRUCT column reads and equals the JAX reader, whole and projected
+    away; a MAP column, which both packages refuse, raises."""
+    from test_torch_parquet_nested import same_table as same_nested
     p = tmp_path / "st.orc"
     porc.write_table(pa.table({
         "k": pa.array([1, 2, 3], pa.int64()),
         "st": pa.array([{"a": 1, "b": "x"}, None, {"a": 3, "b": None}],
                        pa.struct([("a", pa.int64()), ("b", pa.string())]))}),
         p)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        porc_port.read_orc(p, device="cpu")
+    got = porc_port.read_orc(p, device="cpu")
+    same_nested(jorc.read_orc(p), got)
+    assert got["st"].to_pylist() == [(1, "x"), None, (3, None)]
     same_table(jorc.read_orc(p, columns=["k"]),
                porc_port.read_orc(p, columns=["k"], device="cpu"))
+    m = tmp_path / "m.orc"
+    porc.write_table(pa.table({
+        "k": pa.array([1, 2], pa.int64()),
+        "m": pa.array([[("a", 1)], None], pa.map_(pa.string(),
+                                                  pa.int64()))}), m)
+    with pytest.raises(NotImplementedError, match="unsupported ORC type kind"):
+        jorc.read_orc(m)
+    with pytest.raises(NotImplementedError, match="unsupported ORC type kind"):
+        porc_port.read_orc(m, device="cpu")
 
 
 def test_zstd_without_pyarrow_raises_typed(tmp_path, monkeypatch):
@@ -310,12 +324,18 @@ def test_writer_matches_jax(tmp_path, name, comp):
 
 
 def test_writer_refuses_struct_and_missing_codec(tmp_path, monkeypatch):
+    """A STRUCT writes and reads back equal to the JAX reader (and to
+    pyarrow); a compressor this host lacks raises CodecUnavailableError."""
+    from test_torch_parquet_nested import same_table as same_nested
     from spark_rapids_jni_tpu_torch import dtypes as pdt
     from spark_rapids_jni_tpu_torch.columnar import Column, Table
     kid = Column.fixed(pdt.INT64, np.arange(3), device="cpu")
     st = Table([Column(pdt.STRUCT, children=(kid,))], ["st"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        pw.write_orc(st, tmp_path / "s.orc")
+    pw.write_orc(st, tmp_path / "s.orc")
+    same_nested(jorc.read_orc(tmp_path / "s.orc"),
+                porc_port.read_orc(tmp_path / "s.orc", device="cpu"))
+    assert porc.ORCFile(tmp_path / "s.orc").read()["st"].to_pylist() == \
+        [{"f0": 0}, {"f0": 1}, {"f0": 2}]
     t = from_arrow(_mixed(), device="cpu")
     monkeypatch.setattr(pw, "_SNAPPY_C", None)
     with pytest.raises(CodecUnavailableError):

@@ -163,14 +163,26 @@ def test_iter_staged_padded(sorted_file):
 
 
 def test_nested_columns_raise(tmp_path):
+    """A LIST file reads whole and equals the JAX package; the nested shape
+    both packages still refuse, a group inside a struct, raises."""
+    from test_torch_parquet_nested import same_table
     path = tmp_path / "l.parquet"
     pq.write_table(pa.table({"l": pa.array([[1], [2, 3], None]),
                              "x": pa.array([1, 2, 3])}), path)
     assert ppq.ParquetFile(path).names == ["l", "x"]
-    with pytest.raises(NotImplementedError):
-        ppq.read_parquet(path, device=CPU)
+    got = ppq.read_parquet(path, device=CPU)
+    same_table(jpq.read_parquet(path), got)
+    assert got["l"].to_pylist() == [[1], [2, 3], None]
     assert_tables_equal(jpq.read_parquet(path, columns=["x"]),
                         ppq.read_parquet(path, columns=["x"], device=CPU))
+    deep = tmp_path / "ss.parquet"
+    inner = pa.StructArray.from_arrays([pa.array([1, 2, 3])], ["a"])
+    pq.write_table(pa.table({"s": pa.StructArray.from_arrays(
+        [inner, pa.array([4, 5, 6])], ["in", "b"])}), deep)
+    with pytest.raises(NotImplementedError, match="nested group"):
+        jpq.read_parquet(deep)
+    with pytest.raises(NotImplementedError, match="nested group"):
+        ppq.read_parquet(deep, device=CPU)
 
 
 # -- chip_smoke.py's numpy writer, read back where pyarrow exists ------------
