@@ -6,15 +6,17 @@ NDS-shaped Parquet files on the card for q5-lite, hand-wired and as an
 engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, the
 exchange layer on a mesh of 8 shards of the card, adaptive execution
 with the fused partial -> exchange -> combine stage on the same mesh, and
-the device server the JVM talks to (bridge/), reached over its socket, and
-nested columns through the rest of I/O (Parquet, ORC, CSV).
+the device server the JVM talks to (bridge/), reached over its socket,
+nested columns through the rest of I/O (Parquet, ORC, CSV), and the mesh
+spread over processes (ranks of torch.distributed).
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
         [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
         [--exchange-rows 16777216] [--exchange-string-rows 4194304]
         [--adaptive-rows 16777216] [--bridge-rows 16777216]
-        [--nested-rows 4194304]
+        [--nested-rows 4194304] [--ranks-rows 16777216]
+        [--ranks-string-rows 4194304]
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -176,6 +178,20 @@ Phases (any failed check raises, and the script exits non-zero):
             (zlib, 2^20 rows with the STRUCT and the LIST) and a CSV round
             trip (2^20 rows x 6 columns, nulls and quoted fields) onto the
             card.  Times of each step.
+17. ranks   the mesh over processes (parallel/ranks.py), 4 shards a rank:
+            two gloo ranks sharing the card (host-staged), each shuffling
+            its block of the stage's 2^24-row table by its INT32 key and
+            of the 2^22-row STRING table, every received slot and live
+            mask bit for bit its slice of the one-process 8-shard shuffle;
+            the distributed groupby and join gathered against one device;
+            engine q5 planned on rank 0 with distribute=True, broadcast,
+            run on both ranks over their row groups against the
+            one-process plan (counts exact, sums within rel 1e-9), with
+            K3/W1/W2 launched on each rank.  Then one NCCL rank on the
+            card (the same shuffle, and NCCL's collectives over one rank),
+            NCCL refusing two ranks on one card, and, with two cards or
+            more, NCCL with one rank a card (on one card a line says it was
+            not run).  Shuffle ms a backend beside the grid's bytes.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -4355,6 +4371,277 @@ def _phase_nested(torch, root, tracing, n: int, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17. ranks: the mesh over processes, one torch.distributed rank each
+# ---------------------------------------------------------------------------
+
+RANKS_TIMEOUT = 300.0   # seconds a rank's collective may wait
+RANK_AGGS = [("i64", "sum"), ("i64", "count"), ("f64", "min"),
+             ("f64", "max")]
+
+
+def _rank_wall(torch, dev, fn):
+    """``wall`` on a rank's own device (a CPU rank has nothing to sync)."""
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def _rank_shuffle(torch, ranks, table, key, mesh, one) -> dict:
+    """This rank's block of ``table`` shuffled over the ranks: timed, and
+    every received slot and live mask held bit for bit against this rank's
+    slice of the one-process 8-shard shuffle of the whole table."""
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import \
+        fixed_width_layout
+    from spark_rapids_jni_tpu_torch.ops.selection import slice_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle as sh
+    from spark_rapids_jni_tpu_torch.parallel.stringplane import \
+        explode_strings
+    r, w, dev = ranks.rank, ranks.world, ranks.device
+    n = table.num_rows
+    block = slice_table(table, r * n // w, (r + 1) * n // w - r * n // w)
+
+    def run():
+        return sh.shuffle_table_padded(block, mesh, [key])
+
+    rec = {"rows": block.num_rows}
+    _, rec["cold_s"] = _rank_wall(torch, dev, run)
+    warm = sorted(_rank_wall(torch, dev, run)[1] for _ in range(3))
+    rec["ms"] = warm[1] * 1e3
+    got, ok, ovf = run()
+    want, wok, wovf = sh.shuffle_table_padded(table, one, [key])
+    half = want.num_rows // w
+    check(int(ovf) == int(wovf) == 0
+          and torch.equal(ok, wok[r * half:(r + 1) * half])
+          and _tables_equal(torch, got, slice_table(want, r * half, half),
+                            exact=True),
+          f"rank {r} ({ranks.backend}): {key} shuffle slots bit for bit == "
+          "its slice of the one-process 8-shard shuffle")
+    nl = SHARDS // w
+    cap = got.num_rows // (nl * SHARDS)
+    flat = explode_strings(block, ranks=ranks)[0] if any(
+        c.dtype.is_string for c in block.columns) else block
+    row_size = fixed_width_layout(flat.dtypes()).row_size
+    rec.update(capacity=cap, row_bytes=row_size,
+               grid_bytes=nl * SHARDS * cap * row_size,
+               cross_bytes=nl * SHARDS * cap * row_size * (w - 1) // w,
+               live_rows=int(ok.sum()))
+    return rec
+
+
+def _rank_stage_table(torch, n: int, seed: int, dev):
+    """The stage's table (the exchange phase's), with a unique ``row``."""
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import (
+        HostColumn, table_from_numpy)
+    from spark_rapids_jni_tpu_torch.dtypes import INT64
+    cols = stage_columns(n, seed)
+    table = table_from_numpy([HostColumn(t, s_, d, v)
+                              for _, t, s_, d, v in cols],
+                             [c[0] for c in cols], device=dev)
+    return Table(list(table.columns) + [Column(INT64, data=torch.arange(
+        n, device=dev))], list(table.names) + ["row"])
+
+
+def rank_phase(ranks, root, n: int, n_str: int, seed: int,
+               plans: bool) -> dict:
+    """One rank of the ranks phase (run in its own process by
+    ``parallel.ranks.spawn``): the INT32-key and STRING-key shuffles and,
+    with ``plans``, the distributed groupby and join and engine q5."""
+    import torch
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.dtypes import INT32, INT64
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.join import inner_join
+    from spark_rapids_jni_tpu_torch.ops.selection import slice_table
+    from spark_rapids_jni_tpu_torch.parallel import distributed as dist
+    from spark_rapids_jni_tpu_torch.parallel import mesh as pmesh
+    from spark_rapids_jni_tpu_torch.utils import tracing
+    check(not {"jax", "spark_rapids_jni_tpu"} & set(sys.modules),
+          "a rank imports neither jax nor the JAX package")
+    r, w, dev = ranks.rank, ranks.world, ranks.device
+    mesh = pmesh.make_mesh(SHARDS, device=dev, ranks=ranks)
+    one = pmesh.make_mesh(SHARDS, device=dev)
+    out = {"rank": r, "world": w, "backend": ranks.backend,
+           "device": str(dev)}
+    table = _rank_stage_table(torch, n, seed, dev)
+    tracing.reset_counters("kernel.")
+    out["int32_key"] = _rank_shuffle(torch, ranks, table, "i32", mesh, one)
+    rng = np.random.default_rng(seed + 6)
+    chars, offsets, valid = text_strings(rng, n_str)
+    stbl = Table([Column.string(chars, offsets, valid, device=dev),
+                  Column.fixed(INT64, np.arange(n_str), device=dev)],
+                 ["s", "row"])
+    out["string_key"] = _rank_shuffle(torch, ranks, stbl, "s", mesh, one)
+    del stbl
+    launches = kernel_launches(tracing)
+    if not plans:
+        out["launches"] = launches
+        return out
+
+    # the distributed groupby and join: this rank's block in, the
+    # gathered answer against one device
+    blk = slice_table(table, r * n // w, (r + 1) * n // w - r * n // w)
+    tracing.reset_counters("kernel.")
+    got, gs = _rank_wall(torch, dev, lambda: dist.distributed_groupby(
+        blk, mesh, ["i32"], RANK_AGGS))
+    got = _sorted_by(torch, pmesh.gather_table(got, ranks), "i32")
+    one_gb = groupby(table, ["i32"], RANK_AGGS, device=dev)
+    check(got.num_rows == one_gb.num_rows and all(
+        _same_values(torch, a, b)
+        for a, b in zip(got.columns, one_gb.columns)),
+          f"rank {r}: distributed groupby over the ranks == one device")
+    out["groupby"] = {"s": gs, "groups": got.num_rows}
+    m = min(n, 1 << 22)
+    fact = Table([col_head(table["i32"], m), col_head(table["row"], m)],
+                 ["k", "row"])
+    dk = torch.arange(100_000, device=dev)
+    dim = Table([Column(INT32, data=dk.to(torch.int32)),
+                 Column(INT64, data=dk * 3)], ["k", "v"])
+    got, js = _rank_wall(torch, dev, lambda: dist.distributed_join(
+        slice_table(fact, r * m // w, (r + 1) * m // w - r * m // w),
+        slice_table(dim, r * 100_000 // w, 100_000 // w), mesh, ["k"]))
+    got = pmesh.gather_table(got, ranks)
+    check(_tables_equal(torch, _sorted_by(torch, got, "row"),
+                        _sorted_by(torch, inner_join(fact, dim, ["k"],
+                                                     device=dev), "row")),
+          f"rank {r}: distributed join over the ranks == one device")
+    out["join"] = {"s": js, "rows_out": got.num_rows}
+    for k, v in kernel_launches(tracing).items():
+        launches[k] += v
+    del table, blk, fact
+
+    # engine q5: rank 0 plans, every rank runs its row groups
+    plan = q5_engine_plan(root, *Q5_DATES)
+    base = pe.execute(pe.optimize(plan), device=dev)
+    with settings(shards=SHARDS):
+        opt = pe.optimize(plan, distribute=True, ranks=ranks)
+        eng = {}
+        _, eng["cold_s"] = _rank_wall(torch, dev, lambda: pe.execute(
+            opt, device=dev, ranks=ranks))
+        stats = pe.new_stats()
+        tracing.reset_counters("kernel.")
+        res, eng["warm_s"] = _rank_wall(torch, dev, lambda: pe.execute(
+            opt, stats=stats, device=dev, ranks=ranks))
+        eng["launches"] = kernel_launches(tracing)
+    eng.update(exchanges=stats["exchanges"],
+               row_groups_read=stats["row_groups_read"],
+               plan=opt.fingerprint())
+    check(q5_matches(engine_result(res), engine_result(base)),
+          f"rank {r}: engine q5 with distribute=True across the ranks == "
+          "the one-process plan")
+    if dev.type == "cuda":
+        check(all(eng["launches"][k] > 0 for k in DECODE_KERNELS),
+              f"rank {r}: engine q5 launched K3, W1 and W2 on this rank")
+    for k, v in eng["launches"].items():
+        launches[k] += v
+    out["engine_q5"] = eng
+    out["launches"] = launches
+    return out
+
+
+def rank_nccl_one(ranks, n: int, seed: int) -> dict:
+    """One NCCL rank: the same INT32-key shuffle (over one rank nothing
+    crosses) held against the one-process shuffle, then NCCL's own
+    collectives over the group at the grid's size, timed."""
+    import torch
+    import torch.distributed as tdist
+    from spark_rapids_jni_tpu_torch.parallel import mesh as pmesh
+    check(not {"jax", "spark_rapids_jni_tpu"} & set(sys.modules),
+          "a rank imports neither jax nor the JAX package")
+    dev = ranks.device
+    table = _rank_stage_table(torch, n, seed, dev)
+    mesh = pmesh.make_mesh(SHARDS, device=dev, ranks=ranks)
+    out = {"rank": ranks.rank, "world": ranks.world,
+           "backend": ranks.backend, "device": str(dev)}
+    out["int32_key"] = _rank_shuffle(torch, ranks, table, "i32", mesh,
+                                     pmesh.make_mesh(SHARDS, device=dev))
+    grid = torch.randint(0, 1 << 30, (out["int32_key"]["grid_bytes"] // 4,),
+                         dtype=torch.int32, device=dev)
+    recv = torch.empty_like(grid)
+
+    def a2a():
+        tdist.all_to_all_single(recv, grid, group=ranks.group)
+
+    _, out["a2a_cold_s"] = _rank_wall(torch, dev, a2a)
+    out["a2a_ms"] = sorted(_rank_wall(torch, dev, a2a)[1]
+                           for _ in range(5))[2] * 1e3
+    red = grid[:1024].to(torch.int64)
+    tdist.all_reduce(red, group=ranks.group)
+    gath = [torch.empty_like(grid[:1024]) for _ in range(ranks.world)]
+    tdist.all_gather(gath, grid[:1024], group=ranks.group)
+    check(torch.equal(recv, grid) and torch.equal(
+        red, grid[:1024].to(torch.int64) * ranks.world)
+          and all(torch.equal(g, grid[:1024]) for g in gath),
+          "NCCL all_to_all, all_reduce and all_gather over the group")
+    return out
+
+
+def phase_ranks(torch, root, n: int, n_str: int, seed: int) -> dict:
+    """Two gloo ranks sharing the card, one NCCL rank, NCCL's refusal of
+    two ranks on one card, and NCCL one rank a card where there are two
+    cards or more.  Any rank's failure, or a run past its timeout, raises
+    here."""
+    from spark_rapids_jni_tpu_torch.parallel import ranks as pranks
+    out = {"phase": "ranks", "shards": SHARDS, "rows": n,
+           "string_rows": n_str}
+    t0 = time.perf_counter()
+    gloo = pranks.spawn(rank_phase, 2, "gloo", ["cuda:0", "cuda:0"],
+                        RANKS_TIMEOUT, args=(str(root), n, n_str, seed,
+                                             True))
+    out["gloo_s"] = time.perf_counter() - t0
+    out["gloo"] = gloo
+    check(gloo[0]["engine_q5"]["plan"] == gloo[1]["engine_q5"]["plan"],
+          "both ranks ran rank 0's physical plan")
+    t0 = time.perf_counter()
+    (nccl,) = pranks.spawn(rank_nccl_one, 1, "nccl", ["cuda:0"],
+                           RANKS_TIMEOUT, args=(n, seed))
+    out["nccl_s"] = time.perf_counter() - t0
+    out["nccl"] = nccl
+    t0 = time.perf_counter()
+    try:
+        pranks.spawn(rank_nccl_one, 2, "nccl", ["cuda:0", "cuda:0"], 60.0,
+                     args=(1 << 16, seed))
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    check("two ranks on one device" in refused,
+          "NCCL is refused for two ranks on one card, before it can hang")
+    out["nccl_two_on_one_card_refused_s"] = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    world = max((k for k in (8, 4, 2) if k <= cards), default=0)
+    if world:
+        t0 = time.perf_counter()
+        out["nccl_cards"] = pranks.spawn(
+            rank_phase, world, "nccl", [f"cuda:{i}" for i in range(world)],
+            RANKS_TIMEOUT, args=(str(root), n, n_str, seed, False))
+        out["nccl_cards_s"] = time.perf_counter() - t0
+    else:
+        print(f"ranks: NCCL with one rank a card not run: this host has "
+              f"{cards} card", flush=True)
+        out["nccl_cards"] = f"not run: {cards} card"
+    for name, recs in (("gloo, host-staged, 2 ranks on one card", gloo),
+                       ("nccl, 1 rank", [nccl])):
+        for rec in recs:
+            for key in ("int32_key", "string_key"):
+                if key in rec:
+                    k = rec[key]
+                    print(f"ranks: {name}: rank {rec['rank']} {key} shuffle "
+                          f"{k['ms']:.3f} ms, grid {k['grid_bytes']} B, "
+                          f"{k['cross_bytes']} B to the other ranks",
+                          flush=True)
+    out["launches"] = {k: sum(g["launches"][k] for g in gloo)
+                       for k in ALL_KERNELS}
+    out["launches_per_rank"] = {k: [g["launches"][k] for g in gloo]
+                                for k in ALL_KERNELS}
+    return out
+
+
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4378,6 +4665,8 @@ def main() -> int:
     ap.add_argument("--adaptive-rows", type=int, default=1 << 24)
     ap.add_argument("--bridge-rows", type=int, default=1 << 24)
     ap.add_argument("--nested-rows", type=int, default=1 << 22)
+    ap.add_argument("--ranks-rows", type=int, default=1 << 24)
+    ap.add_argument("--ranks-string-rows", type=int, default=1 << 22)
     args = ap.parse_args()
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
@@ -4488,6 +4777,11 @@ def main() -> int:
         nested = phase_nested(torch, root, tracing, args.nested_rows,
                               args.seed)
         emit(nested)
+        torch.cuda.empty_cache()
+
+        ranks = phase_ranks(torch, root, args.ranks_rows,
+                            args.ranks_string_rows, args.seed)
+        emit(ranks)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4503,6 +4797,7 @@ def main() -> int:
          "adaptive_launches": adaptive["launches"][name],
          "bridge_launches": bridge["launches"][name],
          "nested_launches": nested["launches"][name],
+         "ranks_launches": ranks["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
@@ -4522,6 +4817,9 @@ def main() -> int:
         "adaptive_launches": adaptive["launches"]["plain_gather"],
         "bridge_launches": bridge["launches"]["plain_gather"],
         "nested_launches": nested["launches"]["plain_gather"],
+        "ranks_launches": ranks["launches"]["plain_gather"],
+        "ranks_launches_per_rank":
+            ranks["launches_per_rank"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -4543,6 +4841,8 @@ def main() -> int:
             "adaptive_launches": adaptive["launches"][name],
             "bridge_launches": bridge["launches"][name],
             "nested_launches": nested["launches"][name],
+            "ranks_launches": ranks["launches"][name],
+            "ranks_launches_per_rank": ranks["launches_per_rank"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

@@ -250,15 +250,16 @@ def verify_rewrite(root: Optional[PlanNode], old: PlanNode, new: PlanNode,
 # -- rule 1: mid-query broadcast flip ---------------------------------------
 
 def try_broadcast_flip(node: Exchange, table, root: Optional[PlanNode],
-                       stats: dict) -> bool:
+                       stats: dict, rows: Optional[int] = None) -> bool:
     """Decide + verify + record the broadcast flip for one hash exchange.
 
-    ``table`` is the materialized build side.  Returns True when the
-    executor should run ``_broadcast_exchange`` instead of the planned
-    hash exchange; a ledger entry is recorded either way (triggered or
-    not) so EXPLAIN shows the rule was consulted.
+    ``table`` is the materialized build side; ``rows`` its row count over
+    every rank when it is split over ranks, so every rank decides alike.
+    Returns True when the executor should run ``_broadcast_exchange``
+    instead of the planned hash exchange; a ledger entry is recorded
+    either way (triggered or not) so EXPLAIN shows the rule was consulted.
     """
-    measured = int(table.num_rows)
+    measured = int(table.num_rows if rows is None else rows)
     threshold = flip_threshold()
     entry = {"kind": "adaptive:broadcast_flip", "path": _path(root, node),
              "measured_rows": measured, "threshold": threshold,

@@ -25,7 +25,10 @@ cannot take (``plan_device_group``'s reasons) keep the host decoder.
 
 ``execute(plan, stats=..., device=...)`` fills a stats dict (row groups
 pruned/read, chunk count, whether streaming engaged) and runs every reader
-and op on ``device`` (default ``"cuda"``).
+and op on ``device`` (default ``"cuda"``).  With ``ranks=`` (a group of
+``parallel/ranks.py``) every rank of it executes the same plan over its
+split of the scans, the exchanges move rows between the ranks, and the
+result is gathered, so every rank returns it (``engine/placement.py``).
 
 Scans read Parquet and ORC.  An Exchange places rows across the engine's
 mesh of ``config.shards`` shards (the identity on one shard, as the JAX
@@ -61,6 +64,7 @@ from ..dtypes import TypeId, int64_values
 from ..utils import metrics, timeline
 from ..utils.errors import CancelToken, classify
 from ..utils.memory import table_nbytes
+from .placement import REP, SPLIT, Placement, hashed
 from .plan import (Aggregate, Exchange, Filter, Join, Limit, PlanNode,
                    Project, Scan, Sort, TopK, node_label, topo_nodes)
 from .recovery import RecoveryPolicy, query_cancel_token
@@ -187,11 +191,11 @@ class _ExecCtx:
     """
 
     __slots__ = ("fuse", "prefetch", "nparents", "segments", "recovery",
-                 "root", "device", "stats")
+                 "root", "device", "stats", "ranks", "place")
 
     def __init__(self, root: PlanNode, fuse: bool, prefetch: int,
                  recovery: RecoveryPolicy, device: torch.device,
-                 stats: Optional[dict] = None):
+                 stats: Optional[dict] = None, ranks=None):
         from .segment import parent_counts
         self.root = root
         self.stats = new_stats() if stats is None else stats
@@ -201,6 +205,11 @@ class _ExecCtx:
         self.segments: dict = {}  # id(top node) -> Segment | None
         self.recovery = recovery
         self.device = device
+        # the group this execution spreads over (None: one process) and
+        # where each node's rows live over it (engine/placement.py)
+        from ..parallel import ranks as _ranks
+        self.ranks = ranks if _ranks.active(ranks) else None
+        self.place = Placement(root) if self.ranks else None
 
     def segment_for(self, node: PlanNode):
         if not self.fuse:
@@ -264,10 +273,58 @@ def _stream_scan_of(agg: Aggregate) -> Optional[Scan]:
     return _single_chunked_scan(agg.child)
 
 
+# -- placement over ranks --------------------------------------------------
+
+def _gathered(table: Table, node: Optional[PlanNode],
+              ctx: _ExecCtx) -> Table:
+    """``node``'s output ``table`` whole on every rank (a no-op when it
+    already is; ``node`` None: a table split over the ranks)."""
+    from ..parallel.mesh import gather_table
+    if ctx.ranks is None or (node is not None and ctx.place.of(node) == REP):
+        return table
+    with _scope("engine.ranks.gather"):
+        return gather_table(table, ctx.ranks)
+
+
+def _chain_gathers_nothing(node: PlanNode, scan: Scan, ctx: _ExecCtx) -> bool:
+    """True when no Join between ``node`` and the streamed ``scan`` must
+    gather a side: then the stream over this rank's split of the scan is
+    this rank's share of the chain."""
+    dep: dict = {}
+    while node is not scan:
+        if isinstance(node, (Filter, Project)):
+            node = node.child
+            continue
+        gl, gr, _ = ctx.place.join(node)
+        if gl or gr:
+            return False
+        node = node.left if _depends_on(node.left, scan, dep) \
+            else node.right
+    return True
+
+
+def _combine_ranks(table: Table, node: Aggregate, ctx: _ExecCtx) -> Table:
+    """Gather every rank's partial groups of a decomposable Aggregate and
+    combine them into the whole answer."""
+    from ..ops.aggregate import groupby
+    t = _gathered(table, None, ctx)
+    return groupby(t, list(node.keys),
+                   [(nm, _STREAM_COMBINE[op])
+                    for nm, (_c, op) in zip(node.names, node.aggs)],
+                   names=list(node.names), device=ctx.device)
+
+
 # -- the walk --------------------------------------------------------------
+
+def _scan_split(scan: Scan, ctx: _ExecCtx):
+    """``(rank, world)`` when this scan's row groups split over the ranks."""
+    return (ctx.ranks.rank, ctx.ranks.world) \
+        if ctx.ranks is not None and id(scan) in ctx.place.split else None
+
 
 def _scan_table(scan: Scan, stats: dict, ctx: _ExecCtx) -> Table:
     cols = list(scan.columns) if scan.columns else None
+    split = _scan_split(scan, ctx)
     if scan.format == "orc":
         from ..io import ORCChunkedReader, read_orc
         if scan.predicate is None:
@@ -283,7 +340,7 @@ def _scan_table(scan: Scan, stats: dict, ctx: _ExecCtx) -> Table:
         if not parts:
             return reader.file.empty_table(cols, device=ctx.device)
         return concat_tables(parts)
-    if scan.predicate is None and scan.chunk_bytes is None:
+    if scan.predicate is None and scan.chunk_bytes is None and split is None:
         from ..io import read_parquet
         return read_parquet(scan.path, cols, device=ctx.device)
     # pruning or chunking requested: go through the chunked reader so
@@ -293,7 +350,7 @@ def _scan_table(scan: Scan, stats: dict, ctx: _ExecCtx) -> Table:
     reader = ParquetChunkedReader(
         scan.path, pass_read_limit=scan.chunk_bytes or (64 << 20),
         columns=cols, predicate=scan.predicate,
-        cancel=ctx.recovery.cancel, device=ctx.device)
+        cancel=ctx.recovery.cancel, device=ctx.device, split=split)
     if _decode_on_device(ctx.device):
         # the device route, as a streamed scan takes it: each row group's
         # compressed pages cross the link and decode on the device (the
@@ -380,6 +437,13 @@ def _exec_project(node: Project, memo: dict, stats: dict,
 def _exec_join(node: Join, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
     left = _exec(node.left, memo, stats, ctx)
     right = _exec(node.right, memo, stats, ctx)
+    if ctx.ranks is not None:
+        gl, gr, out = ctx.place.join(node)
+        ctx.place.record(node, out)
+        if gl:
+            left = _gathered(left, node.left, ctx)
+        if gr:
+            right = _gathered(right, node.right, ctx)
     if node.how == "cross":
         return _join_fns()["cross"](left, right, device=ctx.device)
     return _join_fns()[node.how](left, right, list(node.left_keys),
@@ -388,7 +452,31 @@ def _exec_join(node: Join, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
 
 def _exec_aggregate(node: Aggregate, memo: dict, stats: dict,
                     ctx: _ExecCtx) -> Table:
+    if ctx.ranks is None:
+        return _aggregate_here(node, memo, stats, ctx)
+    # over ranks: a non-decomposable aggregate whose input is not placed
+    # by its keys gathers that input; a decomposable one runs on this
+    # rank's rows (streamed when nothing on the way must gather), then
+    # combines the ranks' partials unless its input placement (or its
+    # exchange above) already gives each group one rank
+    if not all(op in _STREAM_COMBINE for _, op in node.aggs):
+        t = _exec(node.child, memo, stats, ctx)
+        mode, out = ctx.place.aggregate(node)
+        ctx.place.record(node, out)
+        if mode == "gather":
+            return _groupby(_gathered(t, node.child, ctx), node, ctx)
+        return _aggregate_here(node, memo, stats, ctx)
     scan = _stream_scan_of(node)
+    t = _aggregate_here(node, memo, stats, ctx, stream=scan is None or
+                        _chain_gathers_nothing(node.child, scan, ctx))
+    mode, out = ctx.place.aggregate(node)
+    ctx.place.record(node, out)
+    return _combine_ranks(t, node, ctx) if mode == "combine" else t
+
+
+def _aggregate_here(node: Aggregate, memo: dict, stats: dict,
+                    ctx: _ExecCtx, stream: bool = True) -> Table:
+    scan = _stream_scan_of(node) if stream else None
     if scan is not None:
         # scan-independent subtrees go into the shared memo BEFORE the
         # stats snapshot: a degraded re-run finds them memoized and skips
@@ -467,7 +555,7 @@ def _try_fused_stage(node: Aggregate, memo: dict, stats: dict,
     stage = getattr(node, "_fuse_stage", None) or sg.fused_sandwich(node)
     if stage is None:
         return None
-    ndev = default_shards()
+    ndev = default_shards(ctx.ranks)
     if ndev <= 1:
         return None  # placement over one shard is the identity
     ex, partial = stage.exchange, stage.partial
@@ -476,10 +564,12 @@ def _try_fused_stage(node: Aggregate, memo: dict, stats: dict,
         _fused_fallback(ctx, ex, "shared")
         return None  # shared interior nodes must materialize for others
     inp = _exec(partial.child, memo, stats, ctx)
+    if ctx.ranks is not None and ctx.place.of(partial.child) == REP:
+        inp = _rank_block(inp, ctx)  # each rank aggregates its own rows
     if not sg.fused_runtime_eligible(stage, inp):
         _fused_fallback(ctx, ex, "schema")
         return None
-    mesh = make_mesh(ndev, device=ctx.device)
+    mesh = make_mesh(ndev, device=ctx.device, ranks=ctx.ranks)
 
     prepped = None
     if config.aqe and getattr(ex, "_aqe_split", False):
@@ -491,7 +581,7 @@ def _try_fused_stage(node: Aggregate, memo: dict, stats: dict,
         # the probe only errs toward the adaptive path.
         from ..parallel import shuffle as sh
         from . import adaptive
-        probed, n = sg.fused_pad(inp.select(stage.sel_names()), ndev)
+        probed, n = sg.fused_pad(inp.select(stage.sel_names()), ndev, mesh)
         counts = sh.partition_counts(probed, mesh, list(stage.combine.keys),
                                      n_valid_rows=n)
         prepped = (probed, n)  # reused by the dispatch
@@ -558,14 +648,14 @@ def _try_fused_stage(node: Aggregate, memo: dict, stats: dict,
 def _exec_sort(node: Sort, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
     from ..ops.order import SortKey
     from ..ops.selection import sort_table
-    t = _exec(node.child, memo, stats, ctx)
+    t = _gathered(_exec(node.child, memo, stats, ctx), node.child, ctx)
     return sort_table(t, [SortKey(t[c], ascending=a) for c, a in node.keys])
 
 
 def _exec_limit(node: Limit, memo: dict, stats: dict,
                 ctx: _ExecCtx) -> Table:
     from ..ops.selection import slice_table
-    t = _exec(node.child, memo, stats, ctx)
+    t = _gathered(_exec(node.child, memo, stats, ctx), node.child, ctx)
     return slice_table(t, 0, min(node.n, t.num_rows))
 
 
@@ -586,7 +676,14 @@ def _exec_exchange(node: Exchange, memo: dict, stats: dict,
     logged (engine/recovery.py): full capacity -> halved chunks -> spilled
     shuffle (parallel/spill.py, host-buffered passes) -> passthrough.  The
     last rung is content-equivalent (the exchange returns the whole table
-    either way); transient failures retry under the policy first."""
+    either way); transient failures retry under the policy first.
+
+    Over ranks a broadcast gathers the ranks' rows and a hash exchange
+    moves them between the ranks (a replicated child sends only its
+    rank's block); the AQE flip decides from the rows of every rank, and
+    a rung of the ladder runs on every rank at once only where its cause
+    does (an injected fault): a rank's own out-of-memory leaves the others
+    to time out in their next collective."""
     child = _exec(node.child, memo, stats, ctx)
     # counted before any early-out so the executed count equals the static
     # verify.plan_exchanges census
@@ -605,8 +702,14 @@ def _exec_exchange(node: Exchange, memo: dict, stats: dict,
             # stays the same object (census, spans and ledger paths are
             # keyed on it); only the physical op changes.
             from . import adaptive
-            if adaptive.try_broadcast_flip(node, child, ctx.root, stats):
+            rows = _global_rows(child, node.child, ctx)
+            if adaptive.try_broadcast_flip(node, child, ctx.root, stats,
+                                           rows=rows):
                 return _broadcast_exchange(node, child, ctx)
+    if ctx.ranks is not None:
+        ctx.place.record(node, hashed(node.keys))
+        if ctx.place.of(node.child) == REP:
+            child = _rank_block(child, ctx)
     rp = ctx.recovery
     try:
         return rp.retry("exchange.dispatch",
@@ -635,13 +738,37 @@ def _exec_exchange(node: Exchange, memo: dict, stats: dict,
         if not rp.can_degrade(e):
             raise
         rp.degrade("exchange-passthrough", e, stats)
+        if ctx.ranks is not None:
+            ctx.place.record(node, SPLIT)
         return child
+
+
+def _rank_block(table: Table, ctx: _ExecCtx) -> Table:
+    """This rank's contiguous block of a table every rank holds whole."""
+    from ..ops.selection import slice_table
+    n, r, w = table.num_rows, ctx.ranks.rank, ctx.ranks.world
+    return slice_table(table, r * n // w, (r + 1) * n // w - r * n // w)
+
+
+def _global_rows(table: Table, node: Optional[PlanNode],
+                 ctx: _ExecCtx) -> int:
+    """The rows of ``node``'s output ``table`` over every rank (``node``
+    None: a table split over the ranks)."""
+    from ..parallel import ranks as _ranks
+    if ctx.ranks is None or (node is not None and ctx.place.of(node) == REP):
+        return table.num_rows
+    return _ranks.host_sum(table.num_rows, ctx.ranks)
 
 
 def _broadcast_exchange(node: Exchange, table: Table,
                         ctx: _ExecCtx) -> Table:
     from ..parallel.mesh import broadcast_table, default_shards, make_mesh
-    ns = default_shards()
+    ns = default_shards(ctx.ranks)
+    if ctx.ranks is not None:
+        was = ctx.place.of(node.child)
+        ctx.place.record(node, REP)
+        if was == REP:
+            return table
     wire = table_nbytes(table) * max(0, ns - 1)
     metrics.count("engine.exchange.broadcasts")
     metrics.count("engine.exchange.wire_bytes", wire)
@@ -657,7 +784,8 @@ def _broadcast_exchange(node: Exchange, table: Table,
     if ns <= 1:
         return table
     with _scope("engine.exchange.broadcast"):
-        return broadcast_table(table, make_mesh(ns, device=ctx.device))
+        return broadcast_table(table, make_mesh(ns, device=ctx.device,
+                                                ranks=ctx.ranks))
 
 
 def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
@@ -681,9 +809,10 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
     """
     from ..ops.row_conversion import fixed_width_layout
     from ..ops.selection import concat_tables, gather_table, slice_table
+    from ..parallel import ranks as _ranks
     from ..parallel import shuffle as sh
     from ..parallel.mesh import default_shards, make_mesh, pad_to_multiple
-    ns = default_shards()
+    ns = default_shards(ctx.ranks)
     if ns <= 1:
         return table  # placement over one shard is the identity
     plan = None
@@ -693,11 +822,16 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
         # strings cross in padded-bucket form, exploded once for every
         # chunk; placement hashes the original bytes (Spark-exact)
         from ..parallel.stringplane import explode_strings
-        table, plan = explode_strings(table)
+        table, plan = explode_strings(table, ranks=ctx.ranks)
         key_specs = sh.key_specs_for(table, keys, plan)
-    mesh = make_mesh(ns, device=ctx.device)
+    mesh = make_mesh(ns, device=ctx.device, ranks=ctx.ranks)
+    nl = ns // mesh.world  # this rank's shards
     rows = table.num_rows
-    nchunks = max(1, -(-rows // chunk_rows))  # 0 rows still run one pass
+    # every rank streams as many chunks as the longest block needs: the
+    # chunks' collectives run in lockstep
+    longest = rows if ctx.ranks is None else \
+        _ranks.host_max(rows, ctx.ranks)
+    nchunks = max(1, -(-longest // chunk_rows))  # 0 rows still run one pass
     layout = fixed_width_layout(table.dtypes())
     from ..utils.config import config
     aqe_split = bool(config.aqe) and getattr(node, "_aqe_split", False)
@@ -711,7 +845,7 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
         # straddle one whole-table shard boundary, so its per-(src, dest)
         # count is bounded by two adjacent pair counts: size at twice the
         # global max
-        padded, _ = pad_to_multiple(table, ns)
+        padded, _ = pad_to_multiple(table, ns, mesh)
         counts = sh.partition_counts(padded, mesh, keys, n_valid_rows=rows,
                                      key_specs=key_specs)
         metrics.host_sync(key=id(node), label="exchange-counts-sizing")
@@ -732,14 +866,15 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
         # chunk's shards, however hot the key: a tighter bound than the
         # straddle bound wherever the table is many chunks long (the JAX
         # package sizes every chunk's grid from the straddle bound alone)
-        capacity = sh.cap_bucket(min(need, -(-min(rows, chunk_rows) // ns)))
+        capacity = sh.cap_bucket(min(need,
+                                     -(-min(longest, chunk_rows) // nl)))
 
     def chunk_stream():
         for i in range(nchunks):
             ctx.recovery.checkpoint()
-            lo = i * chunk_rows
+            lo = min(i * chunk_rows, rows)
             t, n = pad_to_multiple(
-                slice_table(table, lo, min(rows - lo, chunk_rows)), ns)
+                slice_table(table, lo, min(rows - lo, chunk_rows)), ns, mesh)
             yield t, torch.arange(t.num_rows, device=ctx.device) < n
 
     tl = timeline.enabled()
@@ -760,9 +895,15 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
     ok = torch.cat([o[1] for o in outs])
     ovf = torch.stack([o[2] for o in outs]).sum()
     # per-chunk (src, dest) live rows: the received layout is
-    # [dest, src, slot]; all of it rides the one compaction fetch
-    mats = torch.stack([o[1].reshape(ns, ns, -1).sum(dim=2).T
+    # [dest, src, slot] (this rank's dests over ranks, gathered on the
+    # device); all of it rides the one compaction fetch
+    mats = torch.stack([o[1].reshape(nl, ns, -1).sum(dim=2)
                         for o in outs])
+    if ctx.ranks is not None:
+        mats = _ranks.all_gather_rows(mats.transpose(0, 1).contiguous(),
+                                      ctx.ranks, [nl] * mesh.world) \
+            .transpose(0, 1)
+    mats = mats.transpose(1, 2)
     t_c0 = time.perf_counter()
     meta = torch.cat([torch.stack([ovf, ok.sum()]),
                       mats.reshape(-1)]).cpu()
@@ -830,6 +971,8 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
         result, did = adaptive.apply_precombine(node, result)
         if did:
             adaptive.update(split_entry, combined_rows=int(result.num_rows))
+    if split is not None and ctx.ranks is not None:
+        ctx.place.record(node, SPLIT)  # hot keys now span the ranks
     return result
 
 
@@ -842,15 +985,15 @@ def _spilled_exchange(node: Exchange, table: Table, ctx: _ExecCtx) -> Table:
     from ..parallel.mesh import default_shards, make_mesh
     from ..parallel.spill import shuffle_table_spilled
     from ..utils.config import config
-    ns = default_shards()
-    if ns <= 1 or table.num_rows == 0:
+    ns = default_shards(ctx.ranks)
+    if ns <= 1 or _global_rows(table, None, ctx) == 0:
         return table
     plan = None
     keys = list(node.keys)
     key_specs = None
     if any(c.dtype.is_string for c in table.columns):
         from ..parallel.stringplane import explode_strings
-        table, plan = explode_strings(table)
+        table, plan = explode_strings(table, ranks=ctx.ranks)
         key_specs = sh.key_specs_for(table, keys, plan)
     # half the table's footprint as the pass budget: the degraded path runs
     # because the full-capacity dispatch just ran out of memory.  A session
@@ -861,7 +1004,8 @@ def _spilled_exchange(node: Exchange, table: Table, ctx: _ExecCtx) -> Table:
     if srem is not None:
         budget = max(1 << 20, min(budget, srem))
     metrics.count("engine.exchange.spilled_reroutes")
-    result = shuffle_table_spilled(table, make_mesh(ns, device=ctx.device),
+    result = shuffle_table_spilled(table, make_mesh(ns, device=ctx.device,
+                                                    ranks=ctx.ranks),
                                    keys, hbm_budget_bytes=budget,
                                    spill_dir=config.spill_dir,
                                    key_specs=key_specs).to(ctx.device)
@@ -883,6 +1027,8 @@ def _exec(node: PlanNode, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
     t0 = time.perf_counter() if qm is not None else 0.0
     with _scope(f"engine.{node_label(node)}"):
         out = handler(node, memo, stats, ctx)
+    if ctx.ranks is not None:
+        ctx.place.settle(node)
     if qm is not None:
         # rows and bytes from buffer metadata: no sync
         qm.node_add(id(node), node_label(node),
@@ -956,7 +1102,8 @@ def _exec_streamed(agg: Aggregate, scan: Scan, memo: dict,
     reader = ParquetChunkedReader(
         scan.path, pass_read_limit=scan.chunk_bytes,
         columns=cols, predicate=scan.predicate, prefetch=ctx.prefetch,
-        cancel=ctx.recovery.cancel, device=ctx.device)
+        cancel=ctx.recovery.cancel, device=ctx.device,
+        split=_scan_split(scan, ctx))
     stats["streamed"] = True
     stats["pipelined"] = ctx.prefetch > 0
     pqm = metrics.current()
@@ -1254,8 +1401,10 @@ def _exec_topk(node: TopK, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
     from ..utils.config import config
 
     scan = _single_chunked_scan(node.child) if config.topk else None
+    if ctx.ranks is not None and ctx.place.of(node.child) != REP:
+        scan = None  # the child's rows are split: gather, then rank them
     if scan is None or node.n == 0:
-        t = _exec(node.child, memo, stats, ctx)
+        t = _gathered(_exec(node.child, memo, stats, ctx), node.child, ctx)
         t = sort_table(t, [SortKey(t[c], ascending=a)
                            for c, a in node.keys])
         return slice_table(t, 0, min(node.n, t.num_rows))
@@ -1268,7 +1417,8 @@ def _exec_topk(node: TopK, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
     reader = ParquetChunkedReader(
         scan.path, pass_read_limit=scan.chunk_bytes,
         columns=cols, predicate=scan.predicate, prefetch=ctx.prefetch,
-        cancel=ctx.recovery.cancel, device=ctx.device)
+        cancel=ctx.recovery.cancel, device=ctx.device,
+        split=_scan_split(scan, ctx))
     stats["streamed"] = True
     stats["topk"] = True
     stats["pipelined"] = ctx.prefetch > 0
@@ -1372,8 +1522,13 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
             fused: Optional[bool] = None,
             prefetch: Optional[int] = None,
             cancel: Optional[CancelToken] = None,
-            device=_device.DEFAULT, session=None) -> Table:
+            device=_device.DEFAULT, session=None, ranks=None) -> Table:
     """Run ``plan`` on ``device``; returns the result Table there.
+
+    ``ranks`` (a group of ``parallel/ranks.py``; default None, one
+    process) makes this a collective of that group: every rank runs
+    ``plan`` (rank 0's, from ``optimize(ranks=)``) over its split of the
+    scans and returns the whole answer (``engine/placement.py``).
 
     ``stats`` (optional dict) is updated in place with execution evidence:
     ``row_groups_pruned``/``row_groups_read`` (scan pruning), ``chunks``,
@@ -1411,7 +1566,7 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
                    prefetch=config.prefetch if prefetch is None
                    else int(prefetch),
                    recovery=RecoveryPolicy(cancel=cancel, session=session),
-                   device=dev, stats=stats)
+                   device=dev, stats=stats, ranks=ranks)
     if config.aqe or config.fuse_exchange:
         # a cached optimized plan is re-executed object-identical: strip
         # the previous run's runtime ledger entries before this run
@@ -1444,6 +1599,9 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
                     cq.source_fingerprint = sfp
         try:
             out = _exec(plan, {}, stats, ctx)
+            # over ranks the answer is collected from every rank, onto
+            # every rank
+            out = _gathered(out, plan, ctx)
         except BaseException as e:
             kind, _ = classify(e)
             metrics.count(f"engine.errors.{kind}")

@@ -620,8 +620,49 @@ def _stamp_evidence(plan: PlanNode, decisions: list, dist: bool) -> None:
     object.__setattr__(plan, "_decisions", decisions)
 
 
-def optimize(plan: PlanNode,
-             distribute: bool = False) -> PlanNode:
+def _stamp_partials(plan: PlanNode) -> None:
+    """Mark ``_partial`` the lower Aggregate of every partial/combine split
+    this optimize made (its ``partial_agg`` decisions, at their census
+    paths), where the plan still has the split's shape: the combine above a
+    hash exchange on the same keys, re-aggregating each partial output
+    with its ``_STREAM_COMBINE`` op.  Ranked execution
+    (engine/placement.py) runs a marked partial on each rank's rows and
+    leaves the combine to finish the groups; any other Aggregate over
+    split rows is combined or gathered across the ranks."""
+    from .executor import _STREAM_COMBINE
+    from .verify import node_paths
+    paths = node_paths(plan)
+    at = {paths[id(n)]: n for n in topo_nodes(plan)}
+    for d in getattr(plan, "_decisions", ()):
+        top = at.get(d.get("path")) if d["kind"] == "partial_agg" else None
+        ex = getattr(top, "child", None)
+        low = getattr(ex, "child", None)
+        if isinstance(top, Aggregate) and isinstance(ex, Exchange) \
+                and ex.kind == "hash" and isinstance(low, Aggregate) \
+                and tuple(low.keys) == tuple(top.keys) \
+                and set(ex.keys) <= set(top.keys) \
+                and all(op in _STREAM_COMBINE for _, op in low.aggs) \
+                and tuple(map(tuple, top.aggs)) == tuple(
+                    (nm, _STREAM_COMBINE[op])
+                    for nm, (_c, op) in zip(low.names, low.aggs)):
+            object.__setattr__(low, "_partial", True)
+
+
+def optimize(plan: PlanNode, distribute: bool = False,
+             ranks=None) -> PlanNode:
+    """Apply all rewrite rules; returns a new plan (input untouched).
+
+    With ``ranks`` (a group of ``parallel/ranks.py``) this is a collective
+    of that group: rank 0 plans and every rank receives rank 0's physical
+    plan with its stamps, so every rank executes the same plan
+    (``execute(ranks=)``); when rank 0's planning raises, every rank
+    raises its error.  See ``_optimize`` for the rules."""
+    from ..parallel import ranks as _ranks
+    return _ranks.on_root(lambda: _optimize(plan, distribute), ranks) \
+        if _ranks.active(ranks) else _optimize(plan, distribute)
+
+
+def _optimize(plan: PlanNode, distribute: bool = False) -> PlanNode:
     """Apply all rewrite rules; returns a new plan (input untouched).
 
     Unless ``config.verify`` is off, the plan verifier (engine/verify.py)
@@ -695,6 +736,7 @@ def optimize(plan: PlanNode,
         # structural pass would rebuild the nodes and drop them
         from . import adaptive
         adaptive.stamp_eligibility(plan)
+        _stamp_partials(plan)
     if config.fuse_exchange:
         # whole-stage fusion hint: the executor dispatches the
         # planner-blessed FusedStage instead of re-deriving it

@@ -787,16 +787,19 @@ def _build_fused_fn(stage: FusedStage, compiled: "CompiledFusedStage"):
                                       fixed_width_layout)
     from ..parallel.shuffle import exchange_planes, partition_ids_specs
 
+    from ..parallel import ranks as _ranks
+
     partial, combine = stage.partial, stage.combine
     keys = list(combine.keys)
     nk = len(keys)
     sel = stage.sel_names()
     ns, prefix, capacity = compiled.ndev, compiled.prefix, compiled.capacity
+    nl = compiled.nlocal  # the shards this process holds (all but ranks)
 
-    def fn(datas, masks, n_valid: int):
+    def fn(datas, masks, n_valid: int, ranks=None):
         dev = datas[0].device
         n = datas[0].shape[0]
-        n_local = n // ns
+        n_local = n // nl
         table = Table([Column(dt, data=d, validity=m)
                        for dt, d, m in zip(compiled.in_dtypes, datas,
                                            masks)], list(sel))
@@ -816,11 +819,12 @@ def _build_fused_fn(stage: FusedStage, compiled: "CompiledFusedStage"):
         # A shard holding more groups than the prefix counts them as
         # overflow (the executor re-plans on the host path)
         gshard = pkeys[0][2].to(torch.int64)
-        gshard = torch.where(row < ng1, gshard, ns)
-        ngs = torch.zeros(ns + 1, dtype=torch.int64, device=dev) \
-            .index_add_(0, gshard, torch.ones_like(gshard))[:ns]
+        gshard = torch.where(row < ng1, gshard, nl)
+        ngs = torch.zeros(nl + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, gshard, torch.ones_like(gshard))[:nl]
         start = torch.cumsum(ngs, 0) - ngs
-        pre_overflow = (ngs - prefix).clamp(min=0).sum()
+        pre_overflow = _ranks.all_reduce((ngs - prefix).clamp(min=0).sum(),
+                                         ranks)
         r = torch.arange(prefix, device=dev)
         gidx = (start[:, None] + r[None, :]).reshape(-1).clamp(max=n - 1)
         glive = (r[None, :] < ngs[:, None]).reshape(-1)
@@ -838,12 +842,12 @@ def _build_fused_fn(stage: FusedStage, compiled: "CompiledFusedStage"):
         # 3) partial rows -> word planes -> one dense (dst, src) block
         layout = fixed_width_layout([c.dtype for c in kcols + acols])
         compiled.layout = layout
-        m = ns * prefix
+        m = nl * prefix
         planes = _build_planes(layout, [c.data for c in kcols + acols],
                                [c.validity for c in kcols + acols], m, dev)
         slot_src = torch.arange(m, device=dev) // prefix
         planes_in, rok, overflow = exchange_planes(
-            planes, slot_src, dest, glive, ns, capacity)
+            planes, slot_src, dest, glive, ns, capacity, ranks)
 
         # 4) received planes -> columns -> every shard's combine, batched
         # the same way (the receiving shard leads the keys)
@@ -859,13 +863,16 @@ def _build_fused_fn(stage: FusedStage, compiled: "CompiledFusedStage"):
             [recv.column(k) for k in keys], row_mask=rok, device=dev)
 
         # 5) outputs: padded combine results (live groups first, in
-        # (shard, key) order), the per-(src, dest) send matrix and the
-        # overflow count, all still on the device
+        # (shard, key) order), the per-(src, dest) send matrix (every
+        # rank's rows, gathered on the device) and the overflow count, all
+        # still on the device
         flat = torch.where(glive, slot_src * (ns + 1) + dest,
                            slot_src * (ns + 1) + ns)
-        sent = torch.zeros(ns * (ns + 1), dtype=torch.int64, device=dev) \
+        sent = torch.zeros(nl * (ns + 1), dtype=torch.int64, device=dev) \
             .index_add_(0, flat, torch.ones_like(flat)) \
-            .reshape(ns, ns + 1)[:, :ns]
+            .reshape(nl, ns + 1)[:, :ns]
+        sent = _ranks.all_gather_rows(sent, ranks,
+                                      [nl] * (ns // nl))
         kdat = tuple(s[2] for s in out_keys[1:])
         kval = tuple(s[3] for s in out_keys[1:])
         return (kdat, kval, tuple(out_aggs), ng2, sent,
@@ -880,14 +887,16 @@ class CompiledFusedStage:
     re-dispatches replay one entry (``traces``: 1 after its first call,
     the "compile"; every later call is a replay)."""
 
-    __slots__ = ("key", "stage", "ndev", "prefix", "capacity", "in_dtypes",
-                 "key_dtypes", "layout", "traces", "calls", "fn")
+    __slots__ = ("key", "stage", "ndev", "nlocal", "prefix", "capacity",
+                 "in_dtypes", "key_dtypes", "layout", "traces", "calls", "fn")
 
     def __init__(self, key: tuple, stage: FusedStage, ndev: int,
-                 in_dtypes: tuple, key_dtypes: tuple, n_local: int):
+                 in_dtypes: tuple, key_dtypes: tuple, n_local: int,
+                 nlocal: Optional[int] = None):
         self.key = key
         self.stage = stage
         self.ndev = ndev
+        self.nlocal = ndev if nlocal is None else nlocal
         self.prefix = fused_prefix(n_local)
         self.capacity = fused_capacity(self.prefix, ndev)
         self.in_dtypes = in_dtypes
@@ -897,16 +906,16 @@ class CompiledFusedStage:
         self.calls = 0
         self.fn = _build_fused_fn(stage, self)
 
-    def __call__(self, datas, masks, n_valid: int):
+    def __call__(self, datas, masks, n_valid: int, ranks=None):
         self.calls += 1
         kind = "replay" if self.traces else "compile"
         self.traces = 1
         if not metrics.enabled() and not timeline.enabled():
-            return self.fn(datas, masks, n_valid)
+            return self.fn(datas, masks, n_valid, ranks)
         # host-side dispatch time: the call enqueues device work and
         # returns (no sync added here)
         t0 = time.perf_counter()
-        out = self.fn(datas, masks, n_valid)
+        out = self.fn(datas, masks, n_valid, ranks)
         dt = time.perf_counter() - t0
         timeline.complete(f"engine.fused_stage.{kind}", t0, dt)
         if metrics.enabled():
@@ -935,12 +944,13 @@ class FusedStageCache:
         return self._maxsize if self._maxsize is not None \
             else config.segment_cache
 
-    def get(self, stage: FusedStage, padded: Table,
-            ndev: int) -> CompiledFusedStage:
-        n_local = padded.num_rows // ndev
+    def get(self, stage: FusedStage, padded: Table, ndev: int,
+            nlocal: Optional[int] = None) -> CompiledFusedStage:
+        nlocal = ndev if nlocal is None else nlocal
+        n_local = padded.num_rows // nlocal
         # the prefix is in the key: a fuse_groups change must build a fresh
         # entry, not replay one sized for the old budget
-        key = (stage.fingerprint(), shape_class(padded), ndev,
+        key = (stage.fingerprint(), shape_class(padded), ndev, nlocal,
                fused_prefix(n_local))
         with self._lock:
             hit = self._entries.get(key)
@@ -952,7 +962,7 @@ class FusedStageCache:
         compiled = CompiledFusedStage(
             key, stage, ndev, tuple(c.dtype for c in padded.columns),
             tuple(padded.column(k).dtype for k in stage.combine.keys),
-            n_local)
+            n_local, nlocal)
         with self._lock:
             racer = self._entries.get(key)
             if racer is not None:
@@ -988,19 +998,24 @@ class FusedStageCache:
 FUSED_STAGE_CACHE = FusedStageCache()
 
 
-def fused_pad(t: Table, ndev: int):
+def fused_pad(t: Table, ndev: int, mesh=None):
     """``pad_to_multiple`` with the empty-input synthesis: an empty table
-    still runs the same one-sync pass over ``ndev`` dead rows (n_valid 0
+    still runs the same one-sync pass over one dead row a shard (n_valid 0
     masks every one), which keeps ``verify.sync_budget`` exact for empty
-    inputs.  Returns (padded Table, n_valid)."""
-    from ..parallel.mesh import pad_to_multiple
+    inputs.  Over ranks (``mesh``) this rank's block pads to every rank's
+    length.  Returns (padded Table, n_valid)."""
+    from ..parallel.mesh import local_shards, pad_to_multiple
     if t.num_rows == 0:
-        return Table([Column(c.dtype,
-                             data=c.data.new_zeros((ndev,)),
-                             validity=torch.zeros(ndev, dtype=torch.bool,
-                                                  device=c.data.device))
-                      for c in t.columns], list(t.names)), 0
-    return pad_to_multiple(t, ndev)
+        nl = ndev if mesh is None else local_shards(mesh)
+        t = Table([Column(c.dtype,
+                          data=c.data.new_zeros((nl,)),
+                          validity=torch.zeros(nl, dtype=torch.bool,
+                                               device=c.data.device))
+                   for c in t.columns], list(t.names))
+        if mesh is None or mesh.world == 1:
+            return t, 0
+        return pad_to_multiple(t, ndev, mesh)[0], 0
+    return pad_to_multiple(t, ndev, mesh)
 
 
 def run_fused_stage(stage: FusedStage, table: Table, mesh,
@@ -1021,22 +1036,24 @@ def run_fused_stage(stage: FusedStage, table: Table, mesh,
     gives: hash placement makes the shards' key sets disjoint, so a stable
     sort of the (shard, key)-ordered groups by key restores it."""
     from ..ops.order import SortKey, encode_keys, lexsort
-    from ..parallel.mesh import axis_size, shard_table
+    from ..parallel.mesh import axis_size, local_shards, shard_table
 
     ndev = axis_size(mesh, axis)
     if prepped is None:
-        padded, nrows = fused_pad(table.select(stage.sel_names()), ndev)
+        padded, nrows = fused_pad(table.select(stage.sel_names()), ndev,
+                                  mesh)
         padded = shard_table(padded, mesh, axis)
     else:
         padded, nrows = prepped
-    compiled = FUSED_STAGE_CACHE.get(stage, padded, ndev)
+    compiled = FUSED_STAGE_CACHE.get(stage, padded, ndev,
+                                     local_shards(mesh, axis))
     datas = tuple(c.data for c in padded.columns)
     masks = tuple(c.validity for c in padded.columns)
     with timeline.span("engine.fused_stage.dispatch",
                        {"capacity": int(compiled.capacity),
                         "rows": int(table.num_rows)}):
         kdat, kval, aggs, ngroups, sent, overflow = compiled(
-            datas, masks, int(nrows))
+            datas, masks, int(nrows), mesh.ranks)
 
     # the one deliberate host sync of the whole stage
     metrics.host_sync(label="groupby-compaction")

@@ -76,6 +76,10 @@ class PlanVerificationError(ValueError):
         self.message = message
         super().__init__(f"{code} at {node_path}: {message}")
 
+    def __reduce__(self):
+        # pickles whole, so another rank can raise it (parallel/ranks.py)
+        return type(self), (self.code, self.node_path, self.message)
+
     def to_dict(self) -> dict:
         return {"code": self.code, "node_path": self.node_path,
                 "message": self.message}
@@ -827,7 +831,7 @@ def plan_segments(plan: PlanNode, cfg=None, ndev: Optional[int] = None,
     all consumed by it, and the walk continues below the partial's child,
     where the runtime roots its lower segments).  ``resolver`` feeds the
     static dtype eligibility check; ``ndev`` defaults to the engine's shard
-    count (``config.shards``)."""
+    count (``mesh.default_shards``)."""
     from ..utils.config import config as _config
     from . import segment as sg
     from .executor import _stream_scan_of
@@ -911,7 +915,16 @@ def sync_budget(plan: PlanNode, resolver: Optional[SchemaResolver] = None,
     compaction, however many chunks stream through.
 
     ``ndev`` is the shard count the exchange entries assume (default: the
-    engine's ``config.shards``).  A hash exchange pays its counts fetch
+    engine's, ``mesh.default_shards``; a ranked caller passes
+    ``default_shards(ranks)``).  Over ranks each rank pays these syncs
+    too: the counts are gathered and the overflows summed on the device
+    before the one fetch each makes.  A ranked run also pays what this
+    model leaves out: one ``ranks-gather-sizing`` fetch for every gather
+    of a table with STRING columns (the gathers engine/placement.py asks
+    for and the root's result, ``mesh.gather_table``), and under gloo a
+    host round trip for every device collective, since gloo stages a
+    CUDA tensor through the host (NCCL's stay on the device).  A
+    hash exchange pays its counts fetch
     and its compaction fetch, empty input included.  A ``fused-stage``
     entry charges exactly one ``groupby-compaction`` for the whole
     sandwich (partial + exchange + combine), plus one

@@ -7,17 +7,22 @@ infers types with pandas' C parser; the card's host has no pandas, so this
 to the same table the JAX reader gives:
 
 - null: pandas' default NA spellings (``keep_default_na``) plus
-  ``na_values``; a blank line is skipped, a short row is null-padded;
+  ``na_values``; a blank line (empty, or only spaces and tabs outside
+  quotes) is skipped, a short row is null-padded;
 - inference in pandas' order: int64 (an int64 overflow tries uint64, and
   a uint64 overflow gives up on numbers), float64, bool (``true`` and
-  ``false`` in any case), else STRING with the raw text;
+  ``false`` in any case), else STRING with the raw text.  Where the uint64
+  attempt fails, an all-integer column is text of pandas' Python ints
+  (``007`` reads ``7``) when a value lies beyond uint64, and the raw text
+  with its NA spellings as text beside a negative or an NA;
 - floats parse as pandas' default ("high" precision) parser does, not
   correctly rounded: at most 17 significant digits, leading zeros
   included, accumulated in a double and scaled by a power of ten;
 - pandas' sentinel quirks: an inferred int64 of -2^63 and a uint64 of
   2^64 - 1 read as null;
 - forced ``dtypes`` parse as pandas' nullable extension types do (ints
-  from int or integral float text, wrapping to the storage width; floats
+  from integer text, wrapping to the storage width, or from float text
+  that survives the cast unchanged; floats
   from float text or a column of bools; bools from True/1/1.0 and
   False/0/0.0 spellings; STRING keeps the raw text).
 """
@@ -25,6 +30,7 @@ to the same table the JAX reader gives:
 from __future__ import annotations
 
 import csv
+import io
 import itertools
 import os
 import re
@@ -52,6 +58,8 @@ _INT_RE = re.compile(_WS + r"[+-]?[0-9]+" + _WS + r"\Z")
 # at least one mantissa digit, before or after the point
 _FLOAT_RE = re.compile(_WS + r"([+-]?)(?=\.?[0-9])([0-9]*)(?:\.([0-9]*))?"
                        r"(?:[eE]([+-]?[0-9]+))?" + _WS + r"\Z")
+# a line of only spaces and tabs, which pandas skips as blank
+_WS_LINE = re.compile(r"(?:\A|[\r\n])[ \t]+(?:[\r\n]|\Z)")
 _I64 = (-(1 << 63), (1 << 63) - 1)
 _U64_MAX = (1 << 64) - 1
 _MAX_DIGITS = 17                      # pandas' precise_xstrtod
@@ -111,9 +119,11 @@ def _floats(vals: list) -> np.ndarray | None:
     return out
 
 
-def _ints(vals: list):
+def _ints(vals: list, has_null: bool):
     """pandas' int64 then uint64 attempt, in file order: ``(dtype, values,
-    null mask)``, ``"float"`` (try floats next) or ``"string"``."""
+    null mask)``, ``"float"`` (try floats next), ``("string", texts)``
+    (pandas' Python ints re-rendered, NA stays null) or ``"raw"`` (every
+    text as it stands, NA spellings included)."""
     n = len(vals)
     if n and _INT_RE.match(vals[0]) is None:
         return "float"
@@ -130,28 +140,37 @@ def _ints(vals: list):
         if inv < n:
             return "float"
         return dt.INT64, arr, arr == _I64[0]  # the Int64 NA sentinel
-    # an int64 overflow: the uint64 parse, from the first value again
-    bad = next((i for i, v in enumerate(ints)
-                if v > _U64_MAX or v < _I64[0]), inv)
-    if bad < inv:
-        return "string"
+    # an int64 overflow: pandas' uint64 parse, from the first value again.
+    # It overflows at a value beyond uint64, stops at a non-integer text,
+    # and only notes a negative sign (seen_sint) or a value above int64
+    big = next((i for i, v in enumerate(ints) if v > _U64_MAX), inv)
+    if big < inv:
+        # pandas' numeric conversion of the column gives Python ints, or
+        # else it keeps the texts
+        return ("string", list(map(str, ints))) if inv == n else "raw"
     if inv < n:
         return "float"
-    if min(ints) < 0:
-        return "string"  # negatives beside values above int64
+    if max(ints) <= _I64[1]:
+        return "string", list(map(str, ints))  # values below int64 only
+    if has_null or any("-" in v for v in vals):
+        return "raw"  # a sign or an NA beside values above int64
     arr = np.array(ints, np.uint64)
     return dt.UINT64, arr, arr == _U64_MAX  # the UInt64 NA sentinel
 
 
-def _infer(vals: list):
-    """(dtype, dense values, extra null mask) of the non-null texts, or
-    (STRING, None, None)."""
-    got = _ints(vals)
+def _infer(vals: list, has_null: bool):
+    """(dtype, dense values, extra null mask) of the non-null texts,
+    (STRING, texts or None, None), or (STRING, "raw", None)."""
+    got = _ints(vals, has_null)
     if got == "float":
         floats = _floats(vals)
         if floats is not None:
             return dt.FLOAT64, floats, None
-    elif got != "string":
+    elif got == "raw":
+        return dt.STRING, "raw", None
+    elif got[0] == "string":
+        return dt.STRING, got[1], None
+    else:
         return got
     bools = _bools(vals)
     if vals and bools is not None:
@@ -167,7 +186,8 @@ def _bools(vals: list) -> np.ndarray | None:
         .astype(np.uint8)
 
 
-def _forced(vals: list, dtype: dt.DType, name) -> np.ndarray:
+def _forced(vals: list, dtype: dt.DType, has_null: bool,
+            name) -> np.ndarray:
     """Dense storage values of the non-null texts of a forced column."""
     if dtype.id == dt.TypeId.BOOL8:
         bad = [v for v in vals if v not in _FORCED_TRUE and
@@ -191,17 +211,39 @@ def _forced(vals: list, dtype: dt.DType, name) -> np.ndarray:
     if storage.kind not in "iu":
         raise NotImplementedError(
             f"CSV column {name!r}: forced {dtype!r} is unsupported")
-    ints = np.empty(len(vals), np.int64)
-    for i, v in enumerate(vals):
-        if _INT_RE.match(v):
-            ints[i] = int(v)
-            continue
-        f = _floats([v])
-        if f is None or f[0] != np.floor(f[0]):
-            raise ValueError(f"CSV column {name!r}: {v!r} is not an "
-                             "integer")
-        ints[i] = int(f[0])
-    return ints.astype(storage)  # wraps to the width, as pandas' cast
+    return _forced_ints(vals, storage, has_null, name)
+
+
+def _forced_ints(vals: list, storage: np.dtype, has_null: bool, name):
+    """pandas' nullable integer parse: ``to_numeric`` of the texts, then
+    the cast to the storage width.  Integer texts give int64 (wrapped to
+    the width), uint64 above int64 (wrapped), or Python ints beside a
+    negative or an NA (each must fit the width); any float text makes the
+    column float64, and each value must survive the cast unchanged."""
+    def refuse(what):
+        return ValueError(f"CSV column {name!r}: {what} does not fit "
+                          f"{storage.name}")
+    if all(map(_INT_RE.match, vals)):
+        ints = list(map(int, vals))
+        lo, hi = (min(ints), max(ints)) if ints else (0, 0)
+        if hi > _U64_MAX or lo < _I64[0]:
+            raise refuse(hi if hi > _U64_MAX else lo)
+        if hi <= _I64[1]:
+            return np.array(ints, np.int64).astype(storage)
+        if lo >= 0 and not has_null:
+            return np.array(ints, np.uint64).astype(storage)
+        info = np.iinfo(storage)
+        if lo < info.min or hi > info.max:
+            raise refuse(lo if lo < info.min else hi)
+        return np.array(ints, storage)
+    floats = _floats(vals)
+    if floats is None:
+        raise ValueError(f"CSV column {name!r}: a value is not an integer")
+    with np.errstate(invalid="ignore", over="ignore"):
+        cast = floats.astype(storage)
+        if not (cast == floats).all():
+            raise refuse("a float value")
+    return cast
 
 
 def _strings(texts, valid, vals, device) -> Column:
@@ -238,6 +280,24 @@ def _column_names(first: list, header: bool, names) -> list:
     return out
 
 
+def _records(text: str, delimiter: str) -> list:
+    """The file's records, blank lines skipped as pandas skips them: an
+    empty line, or one of only spaces and tabs outside quotes."""
+    dialect = dict(delimiter=delimiter, quotechar='"', doublequote=True)
+    if _WS_LINE.search(text) is None:
+        return [r for r in csv.reader(io.StringIO(text, newline=""),
+                                      **dialect) if r]
+    lines = io.StringIO(text, newline="").readlines()
+    reader = csv.reader(lines, **dialect)
+    rows = []
+    for r in reader:
+        if r and not (len(r) == 1 and r[0] and not r[0].strip(" \t")
+                      and lines[reader.line_num - 1].rstrip("\r\n")
+                      == r[0]):
+            rows.append(r)
+    return rows
+
+
 def read_csv(path, *, delimiter: str = ",", header: bool = True,
              names: list | None = None, dtypes: dict | None = None,
              na_values=("", "null", "NULL"),
@@ -253,9 +313,8 @@ def read_csv(path, *, delimiter: str = ",", header: bool = True,
     csv.field_size_limit(max(limit, 1 << 30))
     try:
         with open(os.fspath(path), newline="", encoding="utf-8") as f:
-            rows = [r for r in csv.reader(f, delimiter=delimiter,
-                                          quotechar='"', doublequote=True)
-                    if r]  # blank lines are skipped
+            text = f.read()
+        rows = _records(text, delimiter)
     finally:
         csv.field_size_limit(limit)
     first = rows[0] if rows else []
@@ -280,12 +339,16 @@ def read_csv(path, *, delimiter: str = ",", header: bool = True,
                 forced is None and n == 0:
             out.append(_strings(texts, valid, vals, device))
             continue
+        has_null = not valid.all()
         if forced is not None:
-            dtype, dense, extra = forced, _forced(vals, forced, name), None
+            dtype, dense, extra = forced, _forced(vals, forced, has_null,
+                                                  name), None
         else:
-            dtype, dense, extra = _infer(vals)
+            dtype, dense, extra = _infer(vals, has_null)
         if dtype.is_string:
-            out.append(_strings(texts, valid, vals, device))
+            if dense == "raw":  # NA spellings stay text, as pandas keeps them
+                valid, dense = np.ones(n, np.bool_), list(texts)
+            out.append(_strings(texts, valid, dense or vals, device))
             continue
         if extra is not None and extra.any():
             valid[np.flatnonzero(valid)[extra]] = False

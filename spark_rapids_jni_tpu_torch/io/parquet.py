@@ -1348,13 +1348,15 @@ class ParquetChunkedReader:
     statistics before any page decode.  ``iter_device`` is the device-decode
     route; ``iter_staged`` the host route with one staged transfer per
     chunk; iterating the reader itself ships column by column.  Tables land
-    on ``device``.
+    on ``device``.  ``split=(rank, world)`` reads only the row groups
+    ``rank, rank + world, ...``, a rank's split of the file.
     """
 
     def __init__(self, path, pass_read_limit: int = 64 << 20, columns=None,
                  predicate: tuple | None = None, prefetch: int = 0,
-                 cancel=None, device=_device.DEFAULT):
+                 cancel=None, device=_device.DEFAULT, split=None):
         self.file = ParquetFile(path)
+        self.split = split
         self.limit = int(pass_read_limit)
         self.columns = columns
         self.predicate = predicate
@@ -1387,12 +1389,19 @@ class ParquetChunkedReader:
         row group, at least one chunk, plus one per ``pass_read_limit`` of
         the group's footer ``total_byte_size``.  An estimate."""
         total = 0
-        for gi in range(self.file.num_row_groups):
+        for gi in self._groups():
             if self._group_pruned(gi):
                 continue
             nbytes = int(self.file.row_groups[gi].total_byte_size or 0)
             total += max(1, -(-nbytes // self.limit))
         return total
+
+    def _groups(self) -> range:
+        """The row groups this reader walks (its split of the file)."""
+        if self.split is None:
+            return range(self.file.num_row_groups)
+        rank, world = self.split
+        return range(rank, self.file.num_row_groups, world)
 
     def _group_pruned(self, gi: int) -> bool:
         if self.predicate is None:
@@ -1427,7 +1436,7 @@ class ParquetChunkedReader:
 
     def _host_slices(self):
         """Budget-bounded host-side chunk slices, pre device transfer."""
-        for gi in range(self.file.num_row_groups):
+        for gi in self._groups():
             if self.cancel is not None:
                 self.cancel.check()
             if self._group_pruned(gi):
@@ -1486,7 +1495,7 @@ class ParquetChunkedReader:
         Group order is preserved, so results match the host route row for
         row.
         """
-        for gi in range(self.file.num_row_groups):
+        for gi in self._groups():
             if self.cancel is not None:
                 self.cancel.check()
             if self._group_pruned(gi):

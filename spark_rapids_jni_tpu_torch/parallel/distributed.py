@@ -17,6 +17,13 @@ partitions never cross shards, exactly as on a mesh.
 
 STRING columns cross in padded-bucket form (``stringplane``); string keys
 place by Spark's UTF8String murmur3.  Results compact to the live rows.
+
+Over a mesh of ranks (``parallel/ranks.py``) every argument is this rank's
+block of the row-sharded table (the cross join's right side too) and the
+result is this rank's shards' rows: put together in rank order, the
+one-process result.  Capacities come from the gathered counts, overflows
+are summed over the ranks before any check, so every rank raises or none
+does.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from ..ops.row_conversion import (_build_planes, _from_planes,
                                   fixed_width_layout)
 from ..ops.selection import gather_table
 from ..utils.tracing import traced
+from . import ranks as _ranks
 from .mesh import ROW_AXIS, Mesh, axis_size, broadcast_table, \
-    pad_to_multiple
+    local_shards, pad_to_multiple
 from .shuffle import (_live_rows, cap_bucket, exchange_planes, key_specs_for,
                       partition_counts, partition_ids_specs, shard_ids,
                       shuffle_table_padded)
@@ -77,16 +85,17 @@ def _shard_col(ids: torch.Tensor) -> Column:
     return Column(INT32, data=ids.to(torch.int32))
 
 
-def _exchange_table(table: Table, src, dest, live, ns: int, capacity: int):
-    """Exchange every row of ``table`` (row i from shard src[i] to
-    dest[i]); returns (received Table, live mask, overflow)."""
+def _exchange_table(table: Table, src, dest, live, ns: int, capacity: int,
+                    ranks=None):
+    """Exchange every row of ``table`` (row i from this rank's shard
+    src[i] to dest[i]); returns (received Table, live mask, overflow)."""
     layout = fixed_width_layout(table.dtypes())
     dev = src.device
     planes = _build_planes(layout, [c.data for c in table.columns],
                            [c.validity for c in table.columns],
                            table.num_rows, dev)
     planes_in, live_in, overflow = exchange_planes(planes, src, dest, live,
-                                                   ns, capacity)
+                                                   ns, capacity, ranks)
     datas, masks = _from_planes(layout, planes_in)
     return (Table([Column(dt, data=d, validity=m) for dt, d, m in
                    zip(layout.schema, datas, masks)], table.names),
@@ -116,12 +125,14 @@ def distributed_groupby(table: Table, mesh: Mesh, key_names: list,
     form.  Output: the keys, then ``{op}_{col}`` per aggregation.
     """
     ns = axis_size(mesh, axis)
+    nl = local_shards(mesh, axis)
+    ranked = _ranks.active(mesh.ranks)
     dev = mesh.device
     table = table.to(dev)
     orig_keys, orig_aggs = list(key_names), list(aggs)
     plan = None
     if any(c.dtype.is_string for c in table.columns):
-        table, plan = explode_strings(table)
+        table, plan = explode_strings(table, ranks=mesh.ranks)
         spec_of = dict(zip(plan.names, plan.specs))
         key_names = plan.exploded_keys(orig_keys)
         aggs = []
@@ -134,12 +145,13 @@ def distributed_groupby(table: Table, mesh: Mesh, key_names: list,
                 aggs.append((f"{ref}#len", op))  # same validity
             else:
                 aggs.append((ref, op))
-    if table.num_rows % ns:
+    if table.num_rows % nl:
         if n_valid_rows is not None:
             raise ValueError("table rows not mesh-divisible; pad first or "
                              "let distributed_groupby pad (omit "
                              "n_valid_rows)")
-        table, n_valid_rows = pad_to_multiple(table, ns)
+    if n_valid_rows is None and (ranked or table.num_rows % nl):
+        table, n_valid_rows = pad_to_multiple(table, ns, mesh)
     n = table.num_rows
     kcols = Table([table.column(k) for k in key_names], list(key_names))
     part_specs = key_specs_for(kcols, orig_keys, plan)
@@ -159,14 +171,16 @@ def distributed_groupby(table: Table, mesh: Mesh, key_names: list,
                 vf = _float64_vals(c)
                 ok = c.valid_mask() if live is None else \
                     c.valid_mask() & live
-                gm = torch.where(ok, vf, 0.0).sum() / \
-                    ok.sum().clamp(min=1).to(torch.float64)
+                tot = _ranks.all_reduce(torch.stack(
+                    [torch.where(ok, vf, 0.0).sum(),
+                     ok.sum().to(torch.float64)]), mesh.ranks)
+                gm = tot[0] / tot[1].clamp(min=1)
                 shifted[ref] = Column(FLOAT64, data=vf - gm,
                                       validity=c.validity)
             specs[i] = (shifted[ref], partial_specs[i][1])
 
     # 1. local partial aggregation, every shard at once
-    src = shard_ids(n, ns, dev)
+    src = shard_ids(n, nl, dev)
     pkeys, paggs, png = groupby_padded(
         table, None, specs,
         keys_cols=[_shard_col(src)] + [kcols.column(k) for k in key_names],
@@ -183,12 +197,13 @@ def distributed_groupby(table: Table, mesh: Mesh, key_names: list,
     dest = partition_ids_specs(partial.columns, part_specs, ns)
     psrc = pkeys[0][2].to(torch.int64)
     if capacity is None:
-        flat = torch.where(plive, psrc * ns + dest, ns * ns)
-        counts = torch.zeros(ns * ns + 1, dtype=torch.int64, device=dev) \
+        flat = torch.where(plive, psrc * ns + dest, nl * ns)
+        counts = torch.zeros(nl * ns + 1, dtype=torch.int64, device=dev) \
             .index_add_(0, flat, torch.ones_like(flat))
-        capacity = cap_bucket(int(counts[:-1].max()))
+        capacity = cap_bucket(int(_ranks.all_reduce(
+            counts[:-1].max(), mesh.ranks, "max")))
     recv, rlive, overflow = _exchange_table(partial, psrc, dest, plive, ns,
-                                            capacity)
+                                            capacity, mesh.ranks)
     if int(overflow) > 0:
         raise RuntimeError(
             f"shuffle capacity overflow ({int(overflow)} rows); rerun with "
@@ -262,6 +277,7 @@ def distributed_join(left: Table, right: Table, mesh: Mesh, on_left,
     on_right = list(on_right or on_left)
     on_left = list(on_left)
     ns = axis_size(mesh, axis)
+    nl = local_shards(mesh, axis)
     dev = mesh.device
     left, right = left.to(dev), right.to(dev)
 
@@ -276,8 +292,9 @@ def distributed_join(left: Table, right: Table, mesh: Mesh, on_left,
     def prep(t, keys, overrides):
         plan = None
         if any(c.dtype.is_string for c in t.columns):
-            t, plan = explode_strings(t, width_overrides=overrides)
-        t, n_orig = pad_to_multiple(t, ns)
+            t, plan = explode_strings(t, width_overrides=overrides,
+                                      ranks=mesh.ranks)
+        t, n_orig = pad_to_multiple(t, ns, mesh)
         return t, plan, n_orig, key_specs_for(t, keys, plan)
 
     lt, lplan, ln, lspecs = prep(left, on_left, lov)
@@ -302,8 +319,8 @@ def distributed_join(left: Table, right: Table, mesh: Mesh, on_left,
     def exchange(t, live, specs, cap, plan):
         n = t.num_rows
         dest = partition_ids_specs(t.columns, specs, ns)
-        recv, rl, ovf = _exchange_table(t, shard_ids(n, ns, dev), dest, live,
-                                        ns, cap)
+        recv, rl, ovf = _exchange_table(t, shard_ids(n, nl, dev), dest, live,
+                                        ns, cap, mesh.ranks)
         if int(ovf) > 0:
             raise RuntimeError(
                 f"distributed_join exchange overflow ({int(ovf)} rows); "
@@ -352,13 +369,15 @@ def distributed_window(table: Table, mesh: Mesh, partition_by: list,
     from ..ops.order import SortKey
     from ..ops.window import default_window_names, window
     ns = axis_size(mesh, axis)
+    nl = local_shards(mesh, axis)
     dev = mesh.device
     t = table.to(dev)
     live = None
-    if not any(c.dtype.is_string for c in t.columns) and t.num_rows % ns:
-        t, n_orig = pad_to_multiple(t, ns)
+    if not any(c.dtype.is_string for c in t.columns) and (
+            t.num_rows % nl or _ranks.active(mesh.ranks)):
+        t, n_orig = pad_to_multiple(t, ns, mesh)
         live = _live_rows(t.num_rows, n_orig, dev)
-    elif t.num_rows % ns:
+    elif t.num_rows % nl:
         raise ValueError("distributed_window: STRING tables must split "
                          "into equal shards")
     shuffled, ok, overflow = shuffle_table_padded(t, mesh, list(partition_by),
@@ -366,7 +385,7 @@ def distributed_window(table: Table, mesh: Mesh, partition_by: list,
     if int(overflow):
         raise RuntimeError(f"window shuffle overflow: {int(overflow)} rows")
     dst = torch.arange(shuffled.num_rows, device=dev) // \
-        max(shuffled.num_rows // ns, 1)
+        max(shuffled.num_rows // nl, 1)
     base = Table(list(shuffled.columns) + [_shard_col(dst)],
                  list(shuffled.names) + [SHARD])
 

@@ -8,7 +8,11 @@ The port of ``spark_rapids_jni_tpu/parallel/shuffle.py``.  Per shard:
 
 then the exchange: JAX's ``lax.all_to_all`` over the (src, dst, capacity)
 grid is the (dst, src, capacity) transpose of the batched grid, so shard d
-receives ``nshards * capacity`` slots, source-major.  Every shard's work
+receives ``nshards * capacity`` slots, source-major.  Over ranks
+(``parallel/ranks.py``) each rank packs its own shards' rows and the grid
+crosses in one ``all_to_all_single`` of destination-rank blocks; the
+counts matrix is an all-gather of the ranks' rows, and overflows and
+string widths are summed or maxed over the ranks.  Every shard's work
 runs batched: one stable sort of (src, dest, row) over the whole table, one
 ``searchsorted`` for every (src, dest) start and count, one gather fill of
 the grid.  The slot placement is the JAX package's bit for bit.
@@ -38,7 +42,8 @@ from ..ops.row_conversion import _build_planes, _from_planes, \
     fixed_width_layout
 from ..utils import faults, metrics, timeline
 from ..utils.tracing import traced
-from .mesh import ROW_AXIS, Mesh, axis_size
+from . import ranks as _ranks
+from .mesh import ROW_AXIS, Mesh, axis_size, local_shards, shard_offset
 from .stringplane import (LEN_SUFFIX, WORD_SUFFIX, explode_strings,
                           reassemble_strings)
 
@@ -129,23 +134,39 @@ def _bucket_pack_planes(planes: torch.Tensor, src: torch.Tensor,
 
 def exchange_planes(planes: torch.Tensor, src: torch.Tensor,
                     dest: torch.Tensor, row_mask, nshards: int,
-                    capacity: int):
+                    capacity: int, ranks=None):
     """Bucket-pack word planes and move them between the shards as one
     dense block: the (src, dst) grid transposed to (dst, src).  Returns
-    (planes_in int32[nw, nshards * nshards * capacity], live mask, overflow);
-    shard d owns received rows ``[d * nshards * capacity, (d + 1) * ...)``,
-    source-major, as JAX's all_to_all lays them out."""
+    (planes_in int32[nw, nlocal * nshards * capacity], live mask, overflow
+    summed over every shard); local shard d owns received rows
+    ``[d * nshards * capacity, (d + 1) * ...)``, source-major, as JAX's
+    all_to_all lays them out.  ``src`` is each row's shard among this
+    rank's ``nlocal = nshards / world`` (all of them without ``ranks``).
+
+    Over ranks the (src_local, dst, cap) grid regroups by destination rank
+    and crosses in one all-to-all, the live mask riding as one more plane;
+    a rank receives its shards' slice of the one-process grid."""
+    world = ranks.world if _ranks.active(ranks) else 1
+    nlocal = nshards // world
     send, ok, overflow = _bucket_pack_planes(planes, src, dest, row_mask,
-                                             nshards, nshards, capacity)
+                                             nlocal, nshards, capacity)
     nw = planes.shape[0]
-    recv = send.transpose(1, 2).reshape(nw, -1)
-    rok = ok.transpose(0, 1).reshape(-1)
-    return recv, rok, overflow
+    if world == 1:
+        recv = send.transpose(1, 2).reshape(nw, -1)
+        rok = ok.transpose(0, 1).reshape(-1)
+        return recv, rok, overflow
+    grid = torch.cat([send, ok.to(send.dtype)[None]])  # (nw+1, Ls, N, cap)
+    grid = grid.reshape(nw + 1, nlocal, world, nlocal, capacity)
+    got = _ranks.all_to_all(grid.permute(2, 0, 1, 3, 4), ranks)
+    # got: (src rank, nw+1, src local, dst local, cap) -> dst-major
+    got = got.permute(1, 3, 0, 2, 4).reshape(nw + 1, -1)
+    return got[:nw], got[nw] != 0, _ranks.all_reduce(overflow, ranks)
 
 
-def shard_ids(n: int, nshards: int, device) -> torch.Tensor:
-    """Source shard of each row of a row-sharded table of ``n`` rows."""
-    return torch.arange(n, device=device) // max(n // nshards, 1)
+def shard_ids(n: int, nshards: int, device, offset: int = 0) -> torch.Tensor:
+    """Shard of each row of a row-sharded block of ``n`` rows split into
+    ``nshards`` shards, counted from ``offset`` (a rank's first shard)."""
+    return torch.arange(n, device=device) // max(n // nshards, 1) + offset
 
 
 def device_load_stats(dest_rows) -> dict:
@@ -199,8 +220,10 @@ def partition_counts(table: Table, mesh: Mesh, keys: list,
                      axis=ROW_AXIS, n_valid_rows=None,
                      key_specs: tuple | None = None) -> np.ndarray:
     """Phase 1 of the two-phase exchange: int64[nshards, nshards] host
-    matrix, row s = the rows shard s sends to each destination.  Rows at
-    global index >= ``n_valid_rows`` are padding and count nowhere.
+    matrix, row s = the rows shard s sends to each destination.  Rows of
+    this rank's block at index >= ``n_valid_rows`` are padding and count
+    nowhere.  Over ranks every rank computes its shards' rows and the
+    all-gather gives every rank the same whole matrix.
 
     The matrix reaching the host is a deliberate sync; the engine's
     Exchange paths label it ``exchange-counts-sizing`` at their call
@@ -208,6 +231,7 @@ def partition_counts(table: Table, mesh: Mesh, keys: list,
     if key_specs is None:
         key_specs = key_specs_for(table, keys, None)
     ns = axis_size(mesh, axis)
+    nl = local_shards(mesh, axis)
     n = table.num_rows
     dev = mesh.device
     dest = partition_ids_specs(table.columns, key_specs, ns) if n else \
@@ -215,14 +239,17 @@ def partition_counts(table: Table, mesh: Mesh, keys: list,
     live = _live_rows(n, n_valid_rows, dev)
     if live is not None:
         dest = torch.where(live, dest, ns)
-    flat = shard_ids(n, ns, dev) * (ns + 1) + dest
+    flat = shard_ids(n, nl, dev) * (ns + 1) + dest
     # a scatter-add, not bincount: bincount sizes its output on the host
-    counts = torch.zeros(ns * (ns + 1), dtype=torch.int64, device=dev) \
+    counts = torch.zeros(nl * (ns + 1), dtype=torch.int64, device=dev) \
         .index_add_(0, flat, torch.ones_like(flat))
-    return counts.reshape(ns, ns + 1)[:, :ns].cpu().numpy()
+    counts = counts.reshape(nl, ns + 1)[:, :ns]
+    return _ranks.all_gather_rows(counts, mesh.ranks,
+                                  [nl] * mesh.world).cpu().numpy()
 
 
-def split_dest(dest: torch.Tensor, split: tuple, live, nshards: int):
+def split_dest(dest: torch.Tensor, split: tuple, live, nshards: int,
+               nlocal: int | None = None, offset: int = 0):
     """Destinations after the AQE hot-key split ``(hot_dests, salt)``.
 
     Rows placed on a hot destination are re-dealt round-robin across every
@@ -232,17 +259,20 @@ def split_dest(dest: torch.Tensor, split: tuple, live, nshards: int):
     ceil(hot / nshards).  Dead rows do not advance the deal: the capacity
     projection counted live rows only.  In the batched layout the running
     index is a cumsum along each shard's row block of the (shards, n_local)
-    view, as JAX's per-shard ``cumsum`` is."""
+    view, as JAX's per-shard ``cumsum`` is.  ``dest`` holds this rank's
+    ``nlocal`` shards (every one by default), the first at global index
+    ``offset``."""
     hot, salt = split
+    nlocal = nshards if nlocal is None else nlocal
     is_hot = dest == int(hot[0])
     for h in hot[1:]:
         is_hot = is_hot | (dest == int(h))
     if live is not None:
         is_hot = is_hot & live
     n = dest.shape[0]
-    src = shard_ids(n, nshards, dest.device)
+    src = shard_ids(n, nlocal, dest.device, offset)
     hot_idx = torch.cumsum(is_hot.to(torch.int64).reshape(
-        nshards, n // nshards), dim=1).reshape(-1) - 1
+        nlocal, n // nlocal), dim=1).reshape(-1) - 1
     return torch.where(is_hot, (int(salt) + src + hot_idx) % nshards, dest)
 
 
@@ -254,7 +284,9 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
     """Shuffle a row-sharded table by key hash.
 
     Returns (padded Table of nshards^2 * capacity rows, bool row mask,
-    overflow 0-d tensor).  Rows land on the shard owning
+    overflow 0-d tensor).  Over ranks ``table`` is this rank's block, the
+    result its shards' ``nlocal * nshards * capacity`` slots and the
+    overflow the sum over every rank.  Rows land on the shard owning
     pmod(murmur3(keys), nshards); padding slots have mask False.  ``live``:
     optional bool row mask, dead rows are never sent.
 
@@ -274,13 +306,14 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
     if any(c.dtype.is_string for c in table.columns):
         names0 = table.names or [f"c{i}" for i in range(table.num_columns)]
         keys = [k if isinstance(k, str) else names0[int(k)] for k in keys]
-        table, plan = explode_strings(table)
+        table, plan = explode_strings(table, ranks=mesh.ranks)
     table = table.to(mesh.device)
     layout = fixed_width_layout(table.dtypes())
     ns = axis_size(mesh, axis)
+    nl = local_shards(mesh, axis)
     n = table.num_rows
-    if n % ns:
-        raise ValueError(f"{n} rows do not split into {ns} equal shards")
+    if n % nl:
+        raise ValueError(f"{n} rows do not split into {nl} equal shards")
     if key_specs is None:
         key_specs = key_specs_for(table, keys, plan)
     if capacity is None:
@@ -310,9 +343,11 @@ def shuffle_table_padded(table: Table, mesh: Mesh, keys: list,
         if live is not None:
             live = live.to(dev)
         if split is not None:
-            dest = split_dest(dest, split, live, ns)
+            dest = split_dest(dest, split, live, ns, nl,
+                              shard_offset(mesh, axis))
         planes_in, ok, overflow = exchange_planes(
-            planes, shard_ids(n, ns, dev), dest, live, ns, capacity)
+            planes, shard_ids(n, nl, dev), dest, live, ns, capacity,
+            mesh.ranks)
         datas, masks = _from_planes(layout, planes_in)
     out = Table([Column(dt, data=d, validity=m)
                  for dt, d, m in zip(layout.schema, datas, masks)],

@@ -9,7 +9,9 @@ selecting its window (dead rows are never sent), and each pass's received
 rows leave the device at once, into host arrays or numpy memmaps under
 ``spill_dir``.  Row order is deterministic: pass-major, then destination
 order.  Fixed-width columns only; explode STRING columns first
-(parallel/stringplane).
+(parallel/stringplane).  Over ranks every pass is one all-to-all of the
+ranks' grids; each rank keeps its own shards' rows in its own files (the
+names carry the pid, so ``sweep_orphans`` keeps them apart).
 """
 
 from __future__ import annotations
@@ -29,23 +31,27 @@ from ..ops.row_conversion import (_build_planes, _from_planes,
 from ..utils import faults, metrics
 from ..utils.errors import retry_call
 from ..utils.tracing import traced
-from .mesh import ROW_AXIS, Mesh, axis_size, pad_to_multiple
+from . import ranks as _ranks
+from .mesh import (ROW_AXIS, Mesh, axis_size, local_shards, pad_to_multiple,
+                   shard_offset)
 from .shuffle import (_live_rows, cap_bucket, exchange_planes, key_specs_for,
                       partition_counts, partition_ids_specs, shard_ids)
 
 _SPILL_SEQ = itertools.count(1)
 
 
-def dest_ranks(table: Table, key_specs: tuple, ns: int, live):
+def dest_ranks(table: Table, key_specs: tuple, ns: int, live,
+               nlocal: int | None = None):
     """(dest, rank of each row within its (source shard, destination)
     bucket): one stable sort, computed once so every pass reuses it.
-    Dead rows (``live`` False) rank in a bucket of their own."""
+    Dead rows (``live`` False) rank in a bucket of their own.  The table
+    holds ``nlocal`` of the ``ns`` shards (all by default)."""
     n = table.num_rows
     dev = table.columns[0].device
     dest = partition_ids_specs(table.columns, key_specs, ns)
     if live is not None:
         dest = torch.where(live, dest, ns)
-    key = shard_ids(n, ns, dev) * (ns + 1) + dest
+    key = shard_ids(n, nlocal or ns, dev) * (ns + 1) + dest
     skey, si = torch.sort(key, stable=True)
     idx = torch.arange(n, device=dev)
     first = torch.ones(n, dtype=torch.bool, device=dev)
@@ -138,7 +144,8 @@ def shuffle_table_spilled(table: Table, mesh: Mesh, keys: list,
     buffers numpy arrays, or memmaps under ``spill_dir``).
 
     Row placement is ``shuffle_table_padded``'s (Spark HashPartitioning);
-    rows come out pass-major, destination order within a pass.
+    rows come out pass-major, destination order within a pass.  Over ranks
+    ``table`` is this rank's block and the result its shards' rows.
     """
     if any(not c.dtype.is_fixed_width for c in table.columns):
         raise TypeError(
@@ -147,14 +154,19 @@ def shuffle_table_spilled(table: Table, mesh: Mesh, keys: list,
     if spill_dir is not None:
         sweep_orphans(spill_dir)
     ns = axis_size(mesh, axis)
+    nl = local_shards(mesh, axis)
     dev = mesh.device
-    table, n_valid = pad_to_multiple(table.to(dev), ns)
+    table, n_valid = pad_to_multiple(table.to(dev), ns, mesh)
     layout = fixed_width_layout(table.dtypes())
     if key_specs is None:
         key_specs = key_specs_for(table, keys, None)
     counts = partition_counts(table, mesh, list(keys), axis,
                               n_valid_rows=n_valid, key_specs=key_specs)
     max_cap = int(counts.max())
+    if _ranks.active(mesh.ranks):
+        # every rank runs the same passes: the tightest rank's budget
+        hbm_budget_bytes = -_ranks.host_max(-int(hbm_budget_bytes),
+                                            mesh.ranks)
     row_bytes = layout.row_size
     # a pass holds its received block and the send block of the same size
     budget_rows = max(32, int(hbm_budget_bytes // (2 * ns * ns * row_bytes)))
@@ -165,11 +177,12 @@ def shuffle_table_spilled(table: Table, mesh: Mesh, keys: list,
 
     n = table.num_rows
     live = _live_rows(n, n_valid, dev)
-    dest, rank = dest_ranks(table, key_specs, ns, live)
-    src = shard_ids(n, ns, dev)
+    dest, rank = dest_ranks(table, key_specs, ns, live, nl)
+    src = shard_ids(n, nl, dev)
     planes = _build_planes(layout, [c.data for c in table.columns],
                            [c.validity for c in table.columns], n, dev)
-    total = int(counts.sum())
+    off = shard_offset(mesh, axis)
+    total = int(counts[:, off:off + nl].sum())  # what this rank receives
     probe = _from_planes(layout, planes[:, :0])[0]
     out_datas, out_valids = _spill_buffers(
         [NUMPY_OF_TORCH[d.dtype] for d in probe],
@@ -187,7 +200,7 @@ def shuffle_table_spilled(table: Table, mesh: Mesh, keys: list,
         # transient failure replays the whole pass idempotently
         faults.check("spill.write")
         planes_in, ok, ovf = exchange_planes(planes, src, dest, window, ns,
-                                             cap_slice)
+                                             cap_slice, mesh.ranks)
         if int(ovf):
             raise RuntimeError(f"spill pass {p} overflow ({int(ovf)} rows)"
                                " — counts pass disagrees with payload")

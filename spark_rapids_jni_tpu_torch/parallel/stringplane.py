@@ -14,7 +14,8 @@ any other fixed-width columns.  Zero padding and the length column make
 multi-key equality over (len, words...) exactly string equality.
 ``reassemble_strings`` inverts it.  The bucket width is the longest row
 rounded up to a power of two (``strings_common.pad_width_bucket``), fixed
-at explode time for every shard.
+at explode time for every shard: over ranks the widest rank's, so every
+rank's grid has the same word count, as JAX's global view has it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch
 
 from ..columnar import Column, Table
 from ..dtypes import INT32, UINT32
-from ..ops.strings_common import from_padded_bytes, to_padded_bytes
+from ..ops.strings_common import (from_padded_bytes, string_width_bucket,
+                                  to_padded_bytes)
+from . import ranks as _ranks
 
 LEN_SUFFIX = "#len"
 WORD_SUFFIX = "#w"
@@ -52,15 +55,23 @@ class StringPlan:
         return out
 
 
-def explode_strings(table: Table, width_overrides: dict | None = None
-                    ) -> tuple[Table, StringPlan]:
+def explode_strings(table: Table, width_overrides: dict | None = None,
+                    ranks=None) -> tuple[Table, StringPlan]:
     """Replace every STRING column with its fixed-width padded-bucket form.
 
     ``width_overrides`` maps a column name to a minimum byte width: join
     paths explode both sides of a string key at one width, since the word
-    count is part of the multi-key identity.
+    count is part of the multi-key identity.  Over ``ranks`` each column's
+    width is the maximum over the ranks (one host gather).
     """
     names = tuple(table.names or [f"c{i}" for i in range(table.num_columns)])
+    if _ranks.active(ranks):
+        strs = [nm for nm, c in zip(names, table.columns)
+                if c.dtype.is_string]
+        mine = [max(string_width_bucket(table.column(nm)),
+                    (width_overrides or {}).get(nm) or 0) for nm in strs]
+        widest = [max(w) for w in zip(*_ranks.host_gather_ints(mine, ranks))]
+        width_overrides = dict(zip(strs, widest))
     cols, out_names, specs = [], [], []
     for nm, c in zip(names, table.columns):
         if not c.dtype.is_string:

@@ -22,7 +22,7 @@ time of use.
 | ``metrics``         | ``True``  | query-scoped metrics (``utils/metrics.py``) |
 | ``verify``          | ``True``  | static plan verification in ``optimize`` |
 | ``device_decode``   | ``None``  | streamed scans decode pages on the device: ``None`` on a card target, ``True``/``False`` pin a route |
-| ``shards``          | ``None``  | shards of the engine's mesh: ``None`` is one a device of the target (1 on one card or on the CPU) |
+| ``shards``          | ``None``  | shards of the engine's mesh over every rank: ``None`` is one a rank (1 without a group of ranks, ``parallel/ranks.py``) |
 | ``broadcast_rows``  | ``100000``| distributed planning replicates a join build of at most this many estimated rows |
 | ``spill_dir``       | ``None``  | host directory of the spilled exchange's buffers (``None``: host memory) |
 | ``query_timeout_s`` | ``0.0``   | cooperative per-query deadline (0 = none) |

@@ -319,3 +319,87 @@ def test_concat_tables_and_distinct():
     d = distinct(c, subset=["x"])
     assert d["x"].to_pylist() == [1, 2]
     assert d["s"].to_pylist() == ["a", None]
+
+
+# The reader's five former faults against the JAX reader: each repro, then
+# a short seeded fuzz over the texts that reach it.  Forced refusals raise
+# ValueError in the port, whatever the JAX reader's error class.
+FAULT_CASES = {
+    "1-spaces-line": ("a,b\n1,2\n  \n3,4\n", None),
+    "1-tab-line": ("a\n1\n\t\n2\n", None),
+    "1-spaces-then-header": (" \t\na\n1\n", None),
+    "1-quoted-spaces-kept": ('a\n1\n"  "\n2\n', None),
+    "2-beyond-uint64": ("c0\n007\n+18446744073709551616\n", None),
+    "2-signs-and-spaces": ("c0\n+3\n 4\n-0\n18446744073709551616\n", None),
+    "2-below-int64": ("c0\n-0009223372036854775809\n5\nnull\n", None),
+    "2-text-keeps-raw": ("c0\n007\n18446744073709551616\nx\n", None),
+    "3-na-beside-above-int64": ("c0\n9223372036854775808\nnull\n", None),
+    "3-empty-beside-uint64-max": ("a,b\n18446744073709551615,1\n,2\n",
+                                  None),
+    "3-sign-beside-above-int64": ("c0\n-0\n9223372036854775808\n", None),
+    "4-integer-text-wraps": ("c0\n1\n-129\n", "INT8"),
+    "4-integral-float-fits": ("c0\n1.0\nnull\n300\n", "INT16"),
+    "5-int64": ("c0\n9223372036854775808\n", "INT64"),
+    "5-int8": ("c0\n9223372036854775808\n", "INT8"),
+    "5-uint32": ("c0\n18446744073709551615\n", "UINT32"),
+    "5-uint64-beside-na": ("c0\n255\n9223372036854775808\nnull\n",
+                           "UINT64"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_CASES))
+def test_former_faults_match_jax(tmp_path, name):
+    text, forced = FAULT_CASES[name]
+    kw = {} if forced is None else {"pdtypes": {"c0": getattr(pdt, forced)},
+                                    "jdtypes": {"c0": getattr(jdt, forced)}}
+    read_both(tmp_path, text, **kw)
+
+
+@pytest.mark.parametrize("text,forced", [
+    ("c0\n1e5\n", "INT16"), ("c0\n0.0\n-129\n", "INT8"),
+    ("c0\n2.0\n300\n", "UINT8"), ("c0\n1.0\ninf\n", "INT64"),
+    ("c0\n9223372036854775808\nnull\n", "INT64"),
+    ("c0\n-1\n9223372036854775808\n", "UINT64"),
+    ("c0\n18446744073709551616\n", "UINT64")])
+def test_forced_refusals_of_former_faults(tmp_path, text, forced):
+    p = tmp_path / "t.csv"
+    p.write_text(text)
+    with pytest.raises((ValueError, TypeError, OverflowError)):
+        jread(p, dtypes={"c0": getattr(jdt, forced)})
+    with pytest.raises(ValueError):
+        pread(p, dtypes={"c0": getattr(pdt, forced)}, device=CPU)
+
+
+FUZZ_POOLS = {
+    1: ["1", "x", "  ", "\t", " \t ", '"  "', "2.5", ""],
+    2: ["007", "+3", " 4", "-0", "-1", "18446744073709551616",
+        "-9223372036854775809", "x", "1.5", "null"],
+    3: ["1", "-0", "9223372036854775808", "18446744073709551615", "null",
+        "NA", "", "x"],
+    4: ["1", "-129", "300", "0.0", "1.0", "2.5", "1e5", "-1.0", "null"],
+    5: ["1", "-1", "9223372036854775808", "18446744073709551615",
+        "18446744073709551616", "-9223372036854775809", "null"],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FUZZ_POOLS))
+def test_former_faults_seeded_fuzz(tmp_path, fault):
+    """40 random one-column files a fault: equal tables, or both refuse."""
+    rng = np.random.default_rng(100 + fault)
+    pool = FUZZ_POOLS[fault]
+    forced = ["INT8", "INT16", "UINT8", "UINT32", "INT64", "UINT64"]
+    p = tmp_path / "t.csv"
+    for _ in range(40):
+        cells = [pool[i] for i in rng.integers(0, len(pool),
+                                               rng.integers(1, 6))]
+        p.write_text("c0\n" + "\n".join(cells) + "\n")
+        name = forced[rng.integers(len(forced))] if fault >= 4 else None
+        jd = None if name is None else {"c0": getattr(jdt, name)}
+        pd_ = None if name is None else {"c0": getattr(pdt, name)}
+        try:
+            want = jread(p, dtypes=jd)
+        except (ValueError, TypeError, OverflowError):
+            with pytest.raises(ValueError):
+                pread(p, dtypes=pd_, device=CPU)
+            continue
+        same_table(want, pread(p, dtypes=pd_, device=CPU))
