@@ -7,8 +7,9 @@ engine plan, then the op surface, NDS-lite queries, ORC with q95-lite, the
 exchange layer on a mesh of 8 shards of the card, adaptive execution
 with the fused partial -> exchange -> combine stage on the same mesh, and
 the device server the JVM talks to (bridge/), reached over its socket,
-nested columns through the rest of I/O (Parquet, ORC, CSV), and the mesh
-spread over processes (ranks of torch.distributed).
+nested columns through the rest of I/O (Parquet, ORC, CSV), the mesh
+spread over processes (ranks of torch.distributed), and the device server
+spread over those ranks.
 
     python3 chip_smoke.py [--seed 0] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
@@ -192,6 +193,21 @@ Phases (any failed check raises, and the script exits non-zero):
             NCCL refusing two ranks on one card, and, with two cards or
             more, NCCL with one rank a card (on one card a line says it was
             not run).  Shuffle ms a backend beside the grid's bytes.
+18. bridge_ranks  the device server over ranks (bridge/ranked.py), started
+            as ``python3 -m spark_rapids_jni_tpu_torch.bridge.server
+            --ranks W --backend B --devices ... --set distribute=true
+            --set shards=8``: 2 gloo ranks sharing the card and 1 NCCL
+            rank, started together and driven one after the other.  Each
+            serves engine q5 cold and warm as one PLAN_EXECUTE against the
+            one-process execute (counts exact, sums within rel 1e-9), with
+            K3/W1/W2 counted on every rank from the group's reports, and a
+            TO_ROWS/FROM_ROWS round trip of 2^20 rows of the stage's
+            schema (K1/K2 on rank 0) bit for bit; the gloo group also
+            takes OP_CANCEL of a running scan (every rank stops), q5 again,
+            and an unknown column's structured error.  OP_SHUTDOWN must
+            leave no rank process.  With two cards or more, NCCL one rank
+            a card as the gloo group (on one card a line says it was not
+            run).  q5's warm seconds beside the bridge and ranks phases'.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -4642,6 +4658,251 @@ def phase_ranks(torch, root, n: int, n_str: int, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18. bridge_ranks: the device server over ranks
+# ---------------------------------------------------------------------------
+
+BRIDGE_RANKS_WIRE_ROWS = 1 << 20   # the TO_ROWS/FROM_ROWS round trip's rows
+ROW_WIRE_KERNELS = ("interleave_planes", "deinterleave_wire")
+Q5_NAMES = ["s_store_name", "sales", "profit", "n"]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _alive(pid: int) -> bool:
+    """True for a process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def start_ranked_server(sock_dir, world: int, backend: str,
+                        devices: list) -> dict:
+    """``--ranks world --backend backend --devices ... --set
+    distribute=true --set shards=8``, started and answering a ping."""
+    from spark_rapids_jni_tpu_torch.bridge import spawn_server
+    name = f"{backend}x{world}"
+    srv = {"name": name, "sock": str(sock_dir / f"{name}.sock"),
+           "world": world, "backend": backend, "devices": devices}
+    t0 = time.perf_counter()
+    srv["proc"] = spawn_server(srv["sock"], settings={
+        "distribute": "true", "shards": SHARDS}, ranks=world,
+        backend=backend, devices=devices, timeout=300)
+    srv["start_s"] = time.perf_counter() - t0
+    return srv
+
+
+def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
+                      full: bool) -> dict:
+    """One ranked server (``start_ranked_server``) over the script's
+    files: q5 cold and warm as PLAN_EXECUTE against ``want`` (the
+    one-process answer), K3/W1/W2 counted on every rank from the group's
+    reports; a TO_ROWS/FROM_ROWS round trip (K1/K2 on rank 0) bit-exact;
+    with ``full``, OP_CANCEL of a running scan, then q5 again on the same
+    group, and an unknown column's structured verification error;
+    OP_SHUTDOWN, after which no rank's process is left."""
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import BridgeClient
+    from spark_rapids_jni_tpu_torch.columnar.interop import (
+        HostColumn, table_from_numpy)
+    from spark_rapids_jni_tpu_torch.engine.verify import \
+        PlanVerificationError
+    from spark_rapids_jni_tpu_torch.utils.errors import QueryCancelledError
+    import threading
+    name, sock, proc = srv["name"], srv["sock"], srv["proc"]
+    world, devices = srv["world"], srv["devices"]
+    rec = {k: srv[k] for k in ("world", "backend", "devices", "start_s")}
+    c = BridgeClient(sock, device="cpu")
+    pids = []
+    try:
+        m = c.metrics()
+        pids = m["ranks"]["pids"]
+        check(m["ranks"]["world"] == world and m["ranks"]["live"]
+              and m["device"] == devices[0],
+              f"{name}: the group formed, rank 0 on {devices[0]}")
+        plan = q5_engine_plan(root, *Q5_DATES)
+
+        def q5(what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (h,) = c.execute_plan(plan)
+            s = time.perf_counter() - t0
+            got = c.export_table(h)
+            c.release(h)
+            check(q5_matches(engine_result(_named(got, Q5_NAMES)), want),
+                  f"{name}: q5 over PLAN_EXECUTE ({what}) == the "
+                  "one-process execute")
+            return s
+
+        rec["q5_cold_s"] = q5("cold")
+        rec["q5_warm_s"] = q5("warm")
+        reports = c.metrics()["ranks"]["last_plan"]
+        rec["q5_per_rank"] = [{k: r[k] for k in (
+            "rank", "row_groups_read", "exchanges", "launches")}
+            for r in reports]
+        check(len(reports) == world and all(r["ok"] for r in reports)
+              and len({r["exchanges"] for r in reports}) == 1,
+              f"{name}: every rank ran rank 0's plan")
+        check(all(r["launches"].get(k, 0) > 0 for r in reports
+                  for k in DECODE_KERNELS),
+              f"{name}: q5 launched K3, W1 and W2 on every rank")
+        if world > 1:
+            check(all(r["row_groups_read"] > 0 for r in reports),
+                  f"{name}: every rank read its own row groups")
+
+        # RowConversion over the wire: K1/K2 on rank 0
+        cols = stage_columns(BRIDGE_RANKS_WIRE_ROWS, seed)
+        host = table_from_numpy([HostColumn(t, s_, d, v)
+                                 for _, t, s_, d, v in cols],
+                                [x[0] for x in cols], device="cpu")
+        k0 = c.metrics("kernel.")["counters"]
+        th = c.import_table(host)
+        blobs = c.convert_to_rows(th)
+        th2 = c.convert_from_rows(blobs[0], host.dtypes())
+        back = c.export_table(th2)
+        k1 = c.metrics("kernel.")["counters"]
+        rec["wire_launches"] = {
+            k: k1.get("kernel." + k, 0) - k0.get("kernel." + k, 0)
+            for k in ROW_WIRE_KERNELS}
+        check(all(torch.equal(a.valid_mask(), b.valid_mask())
+                  and bits_equal(torch, a.data[b.valid_mask()],
+                                 b.data[b.valid_mask()])
+                  for a, b in zip(back.columns, host.columns)),
+              f"{name}: TO_ROWS/FROM_ROWS round trip of "
+              f"{BRIDGE_RANKS_WIRE_ROWS} rows is bit-exact")
+        check(all(v > 0 for v in rec["wire_launches"].values()),
+              f"{name}: TO_ROWS and FROM_ROWS launched K1 and K2 on rank 0")
+        for h in (th, th2, *blobs):
+            c.release(h)
+
+        if full:
+            # a scan sliced into 64 KiB chunks runs for seconds: OP_CANCEL
+            # lands mid-run, and every rank stops at the same boundary
+            scan = pe.Aggregate(pe.Scan(root / "store_sales.parquet",
+                                        chunk_bytes=1 << 16),
+                                ["ss_store_sk"], [("ss_net_profit", "sum")],
+                                names=["s"])
+            ca = BridgeClient(sock, device="cpu")
+            errs = []
+
+            def submit():
+                try:
+                    ca.execute_plan(scan)
+                except Exception as e:  # noqa: BLE001 -- checked below
+                    errs.append(e)
+
+            t = threading.Thread(target=submit)
+            t.start()
+            for _ in range(5000):
+                if c.query_status(trace_id=ca.trace_id):
+                    break
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            rec["cancelled"] = c.cancel(ca.trace_id)
+            t.join(timeout=600)
+            rec["cancel_reply_s"] = time.perf_counter() - t0
+            ca.close()
+            check(rec["cancelled"] == 1 and len(errs) == 1
+                  and isinstance(errs[0], QueryCancelledError)
+                  and errs[0].trace_id == ca.trace_id,
+                  f"{name}: OP_CANCEL stopped the running scan: {errs}")
+            reports = c.metrics()["ranks"]["last_plan"]
+            check(all(r["error"] == "QueryCancelledError" for r in reports),
+                  f"{name}: every rank stopped the cancelled plan")
+            rec["q5_after_cancel_s"] = q5("after the cancel")
+            try:
+                c.execute_plan(pe.Aggregate(
+                    pe.Scan(root / "store_sales.parquet"), ["nope"],
+                    [("ss_net_profit", "sum")], names=["s"]))
+                code = ""
+            except PlanVerificationError as e:
+                code = e.code
+            check(code == "unknown-column",
+                  f"{name}: an unknown column's structured error")
+            check(c.metrics()["ranks"]["live"], f"{name}: the group serves")
+        c.shutdown_server()
+        check(proc.wait(timeout=120) == 0, f"{name}: the server shut down")
+        check(not any(_alive(p) for p in pids),
+              f"{name}: OP_SHUTDOWN left no rank process")
+    finally:
+        c.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    return rec
+
+
+def phase_bridge_ranks(torch, root, seed: int, bridge_warm_s: float,
+                       ranks_warm_s: float) -> dict:
+    """The device server over ranks (bridge/ranked.py): 2 gloo ranks
+    sharing the card, then 1 NCCL rank, then NCCL one rank a card where
+    the host has two cards or more.  The servers start together (their
+    processes' start is host work) and are driven one after another."""
+    from concurrent.futures import ThreadPoolExecutor
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import shm as shmlib
+    import shutil
+    out = {"phase": "bridge_ranks", "shards": SHARDS}
+    t_phase = time.perf_counter()
+    plan = q5_engine_plan(root, *Q5_DATES)
+    want = engine_result(pe.execute(pe.optimize(plan), device=DEV))
+    cards = torch.cuda.device_count()
+    world = max((k for k in (8, 4, 2) if k <= cards), default=0)
+    groups = {"gloo": (2, "gloo", ["cuda:0", "cuda:0"]),
+              "nccl": (1, "nccl", ["cuda:0"])}
+    if world:
+        groups["nccl_cards"] = (world, "nccl",
+                                [f"cuda:{i}" for i in range(world)])
+    else:
+        print(f"bridge_ranks: NCCL with one rank a card not run: this "
+              f"host has {cards} card", flush=True)
+        out["nccl_cards"] = f"not run: {cards} card"
+    sock_dir = Path(tempfile.mkdtemp(prefix="srjt-", dir=shmlib.SHM_DIR))
+    futs = {}
+    try:
+        with ThreadPoolExecutor(len(groups)) as ex:
+            futs = {k: ex.submit(start_ranked_server, sock_dir, *g)
+                    for k, g in groups.items()}
+            for k in groups:
+                out[k] = ranked_server_run(torch, root, futs[k].result(),
+                                           want, seed, k != "nccl")
+    finally:
+        for f in futs.values():
+            if f.done() and f.exception() is None \
+                    and f.result()["proc"].poll() is None:
+                f.result()["proc"].kill()
+                f.result()["proc"].wait(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    card = card_line()
+    print(f"bridge_ranks: q5 warm PLAN_EXECUTE {out['gloo']['q5_warm_s']:.4f}"
+          f" s over 2 gloo ranks sharing the card, "
+          f"{out['nccl']['q5_warm_s']:.4f} s over 1 NCCL rank; the one-rank "
+          f"server (bridge) {bridge_warm_s:.4f} s, the in-process 2-rank "
+          f"run (ranks) {ranks_warm_s:.4f} s; {card}", flush=True)
+    launches = {k: 0 for k in ALL_KERNELS}
+    per_rank = {k: [0, 0] for k in ALL_KERNELS}
+    for r in out["gloo"]["q5_per_rank"]:
+        for k in DECODE_KERNELS:
+            launches[k] += r["launches"].get(k, 0)
+            per_rank[k][r["rank"]] = r["launches"].get(k, 0)
+    for k in ROW_WIRE_KERNELS:
+        launches[k] = out["gloo"]["wire_launches"][k]
+        per_rank[k][0] = launches[k]
+    out["launches"] = launches
+    out["launches_per_rank"] = per_rank
+    out["card"] = card
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4782,11 +5043,14 @@ def main() -> int:
         ranks = phase_ranks(torch, root, args.ranks_rows,
                             args.ranks_string_rows, args.seed)
         emit(ranks)
+        torch.cuda.empty_cache()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+        bridge_ranks = phase_bridge_ranks(
+            torch, root, args.seed, bridge["q5"]["warm_s"],
+            ranks["gloo"][0]["engine_q5"]["warm_s"])
+        emit(bridge_ranks)
+
+    print(card_line(), flush=True)
     pkg = "spark_rapids_jni_tpu_torch/kernels/csrc/"
     jax_pkg = "spark_rapids_jni_tpu/ops/"
     rows = [
@@ -4798,6 +5062,7 @@ def main() -> int:
          "bridge_launches": bridge["launches"][name],
          "nested_launches": nested["launches"][name],
          "ranks_launches": ranks["launches"][name],
+         "bridge_ranks_launches": bridge_ranks["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": "bytes",
@@ -4820,6 +5085,9 @@ def main() -> int:
         "ranks_launches": ranks["launches"]["plain_gather"],
         "ranks_launches_per_rank":
             ranks["launches_per_rank"]["plain_gather"],
+        "bridge_ranks_launches": bridge_ranks["launches"]["plain_gather"],
+        "bridge_ranks_launches_per_rank":
+            bridge_ranks["launches_per_rank"]["plain_gather"],
         "max_abs_err": dk["plain_gather"]["max_abs_err"],
         "ms": contract["ms"], "kernel_ms": contract["ms"],
         "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
@@ -4843,6 +5111,9 @@ def main() -> int:
             "nested_launches": nested["launches"][name],
             "ranks_launches": ranks["launches"][name],
             "ranks_launches_per_rank": ranks["launches_per_rank"][name],
+            "bridge_ranks_launches": bridge_ranks["launches"][name],
+            "bridge_ranks_launches_per_rank":
+                bridge_ranks["launches_per_rank"][name],
             "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
             "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": "bytes",

@@ -40,16 +40,25 @@ _IMP_COUNTER = itertools.count(1)
 
 def spawn_server(sock_path: str, device=_device.DEFAULT,
                  settings: dict | None = None,
-                 timeout: float = 120.0) -> subprocess.Popen:
+                 timeout: float = 120.0, ranks: int | None = None,
+                 backend: str | None = None,
+                 devices=None) -> subprocess.Popen:
     """Start ``python -m spark_rapids_jni_tpu_torch.bridge.server`` on
     ``sock_path`` and return once it answers a ping.
 
     ``device`` is the server's ``--device``; ``settings`` maps fields of
     ``utils.config.config`` to values, passed as ``--set field=value``.
-    Raises when the process exits first (its return code in the message)
-    or does not answer within ``timeout`` seconds (it is killed)."""
+    ``ranks``, ``backend`` and ``devices`` (one a rank) spread the server
+    over a group of processes (``--ranks/--backend/--devices``): its
+    socket answers only once the group has formed, and the server exits
+    when a rank exits first.  Raises when the process exits first (its
+    return code in the message) or does not answer within ``timeout``
+    seconds (it is killed)."""
     cmd = [sys.executable, "-m", "spark_rapids_jni_tpu_torch.bridge.server",
            "--socket", sock_path, "--device", str(device)]
+    if ranks is not None or backend is not None or devices is not None:
+        cmd += ["--ranks", str(ranks or 1), "--backend", str(backend),
+                "--devices", ",".join(str(d) for d in devices or ())]
     for k, v in (settings or {}).items():
         cmd += ["--set", f"{k}={v}"]
     proc = subprocess.Popen(cmd, cwd=str(_PKG_PARENT))

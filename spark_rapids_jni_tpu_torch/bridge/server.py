@@ -23,7 +23,10 @@ connections through the handle table need no stream bookkeeping.
 
 Run: ``python -m spark_rapids_jni_tpu_torch.bridge.server --socket S
 [--device cpu] [--set field=value ...]`` (``--device`` defaults to
-``cuda``; ``--set`` assigns a field of ``utils.config.config``).
+``cuda``; ``--set`` assigns a field of ``utils.config.config``).  With
+``--ranks W --backend {nccl,gloo} --devices d0,d1,...`` the server spreads
+over a group of ``W`` processes, one rank a device: rank 0 serves the
+socket and every rank executes each ``PLAN_EXECUTE`` (``ranked.py``).
 """
 
 from __future__ import annotations
@@ -119,9 +122,12 @@ class BridgeServer:
     The shared state a concurrent plan touches (handle table, export map,
     op counters, cancel registry) is individually locked."""
 
-    def __init__(self, sock_path: str, device=_device.DEFAULT):
+    def __init__(self, sock_path: str, device=_device.DEFAULT, group=None):
         self.sock_path = sock_path
         self.device = _device.resolve(device)
+        # the ranks every PLAN_EXECUTE runs on (ranked.RankGroup; None:
+        # this process alone)
+        self.group = group
         self.handles = HandleTable()
         self._exports_lock = threading.Lock()
         self._exports: dict[str, object] = {}  # shm name -> mmap
@@ -384,7 +390,9 @@ class BridgeServer:
         is a structured ``PlanVerificationError`` reply), the result-set
         cache (a hit skips admission and execution), admission through
         ``SCHEDULER.admit`` (queue or shed), then execution with the
-        admitted session under a registered ``CancelToken``."""
+        admitted session under a registered ``CancelToken``.  With a group
+        of ranks the execution is the group's (``ranked.RankGroup.run``):
+        every rank runs the plan, one plan at a time."""
         (plen,) = struct.unpack_from("<I", payload)
         blob = payload[4:4 + plen]
         from ..engine import deserialize
@@ -399,7 +407,8 @@ class BridgeServer:
                 from ..engine import verify
                 verify(plan)
             if self._plan_cache is None:
-                self._plan_cache = PlanCache()
+                self._plan_cache = PlanCache() if self.group is None \
+                    else self.group.cache
             stats: dict = {}
             tok = CancelToken(config.query_timeout_s or None)
             with self._tokens_lock:
@@ -428,10 +437,15 @@ class BridgeServer:
                             session = SCHEDULER.admit(
                                 fingerprint=fp, trace_id=scope.trace_id)
                         try:
-                            compiled = self._plan_cache.get(plan)
-                            out = compiled.execute(
-                                stats=stats, cancel=tok, session=session,
-                                device=self.device)
+                            if self.group is not None:
+                                out = self.group.run(blob, plan,
+                                                     scope.trace_id, tok,
+                                                     session, stats)
+                            else:
+                                compiled = self._plan_cache.get(plan)
+                                out = compiled.execute(
+                                    stats=stats, cancel=tok,
+                                    session=session, device=self.device)
                         finally:
                             if session is not None:
                                 session.release()
@@ -506,7 +520,8 @@ class BridgeServer:
         counter/histogram/gauge registry (narrowed by an optional UTF-8
         name prefix in ``payload``), recent query summaries, per-shard
         exchange gauges, the profile store, the timeline, the flight
-        recorder's health and the SLO burn."""
+        recorder's health and the SLO burn; with a group of ranks, its
+        ``ranks`` block (``ranked.RankGroup.snapshot``)."""
         prefix = payload.decode("utf-8") if payload else ""
         with self._metrics_lock:
             snap = {"ops": dict(self._metrics["ops"]),
@@ -516,6 +531,8 @@ class BridgeServer:
         with self._exports_lock:
             snap["open_exports"] = len(self._exports)
         snap["device"] = str(self.device)
+        if self.group is not None:
+            snap["ranks"] = self.group.snapshot()
         if self._plan_cache is not None:
             snap["plan_cache"] = self._plan_cache.stats()
             snap["last_plan"] = dict(self._last_plan_stats)
@@ -695,9 +712,9 @@ class BridgeServer:
 
 
 def serve(sock_path: str, device=_device.DEFAULT,
-          ready: threading.Event | None = None) -> None:
+          ready: threading.Event | None = None, group=None) -> None:
     """Run a server on ``sock_path`` until a client sends OP_SHUTDOWN."""
-    BridgeServer(sock_path, device).serve_forever(ready)
+    BridgeServer(sock_path, device, group).serve_forever(ready)
 
 
 def main(argv=None) -> None:
@@ -708,12 +725,33 @@ def main(argv=None) -> None:
     ap.add_argument("--set", action="append", default=[],
                     metavar="FIELD=VALUE",
                     help="set a field of utils.config.config (repeatable)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes of the server's group, one rank a "
+                         "device (default 1: this process alone)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"),
+                    help="the group's torch.distributed backend (forms a "
+                         "group even of one rank)")
+    ap.add_argument("--devices",
+                    help="each rank's torch device, comma-separated")
     args = ap.parse_args(argv)
     from ..utils.config import config, parse_setting
     for text in args.set:
         name, value = parse_setting(text)
         setattr(config, name, value)
-    serve(args.socket, args.device)
+    if args.backend is None and args.devices is None and args.ranks == 1:
+        serve(args.socket, args.device)
+        return
+    if args.backend is None or args.devices is None:
+        ap.error("--ranks, --backend and --devices go together")
+    devices = [d.strip() for d in args.devices.split(",")]
+    if len(devices) != args.ranks:
+        ap.error(f"{len(devices)} devices for {args.ranks} ranks")
+    from . import ranked
+    group = ranked.start(args.ranks, args.backend, devices, args.set)
+    try:
+        serve(args.socket, devices[0], group=group)
+    finally:
+        group.shutdown()
 
 
 if __name__ == "__main__":

@@ -43,10 +43,10 @@ class CompiledPlan:
         self.executions = 0
 
     def execute(self, stats: Optional[dict] = None, cancel=None,
-                device=_device.DEFAULT, session=None):
+                device=_device.DEFAULT, session=None, ranks=None):
         self.executions += 1
         return execute(self.optimized, stats=stats, cancel=cancel,
-                       device=device, session=session)
+                       device=device, session=session, ranks=ranks)
 
 
 class PlanCache:
@@ -72,20 +72,42 @@ class PlanCache:
         return self._maxsize if self._maxsize is not None \
             else config.plan_cache
 
-    def get(self, plan: PlanNode) -> CompiledPlan:
-        key = plan.fingerprint()
+    def holds(self, plan: PlanNode) -> bool:
+        """Whether ``get(plan)`` would hit (counts nothing)."""
         with self._lock:
-            hit = self._entries.get(key)
-            if hit is not None:
+            return plan.fingerprint() in self._entries
+
+    def get(self, plan: PlanNode, ranks=None,
+            hit: Optional[bool] = None) -> CompiledPlan:
+        """The plan's ``CompiledPlan``, optimized on a miss.
+
+        Over ``ranks`` (a group of ``parallel/ranks.py``) every rank calls
+        ``get`` with rank 0's decision ``hit`` (its ``holds``), and a miss
+        is ``optimize(plan, ranks=)``, a collective in which rank 0 plans.
+        Every rank's cache sees the same calls in the same order, so rank
+        0's hit is a hit on every rank."""
+        from ..parallel import ranks as _ranks
+        key = plan.fingerprint()
+        ranked = _ranks.active(ranks)
+        with self._lock:
+            got = self._entries.get(key)
+            if ranked:
+                if hit and got is None:
+                    raise RuntimeError(
+                        f"plan cache of rank {ranks.rank} is out of step "
+                        f"with rank 0's: no entry for {key[:12]}")
+                got = got if hit else None
+            if got is not None:
                 self._entries.move_to_end(key)
                 self.hits += 1
                 metrics.count("engine.plan_cache.hit")
-                return hit
+                return got
         # optimize outside the lock (reads file footers for schemas)
-        compiled = CompiledPlan(key, plan, optimize(plan))
+        compiled = CompiledPlan(key, plan, optimize(plan, ranks=ranks))
         with self._lock:
             racer = self._entries.get(key)
-            if racer is not None:  # lost a concurrent-miss race: their entry
+            if racer is not None and not ranked:
+                # lost a concurrent-miss race: their entry
                 self._entries.move_to_end(key)
                 self.hits += 1
                 metrics.count("engine.plan_cache.hit")
@@ -93,6 +115,7 @@ class PlanCache:
             self.misses += 1
             metrics.count("engine.plan_cache.miss")
             self._entries[key] = compiled
+            self._entries.move_to_end(key)
             while len(self._entries) > self.maxsize:
                 self._entries.popitem(last=False)
                 self.evictions += 1

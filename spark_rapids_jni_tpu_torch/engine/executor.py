@@ -282,6 +282,7 @@ def _gathered(table: Table, node: Optional[PlanNode],
     from ..parallel.mesh import gather_table
     if ctx.ranks is None or (node is not None and ctx.place.of(node) == REP):
         return table
+    ctx.recovery.checkpoint()  # the group's vote, before it gathers
     with _scope("engine.ranks.gather"):
         return gather_table(table, ctx.ranks)
 
@@ -876,6 +877,7 @@ def _hash_exchange(node: Exchange, table: Table, ctx: _ExecCtx,
             t, n = pad_to_multiple(
                 slice_table(table, lo, min(rows - lo, chunk_rows)), ns, mesh)
             yield t, torch.arange(t.num_rows, device=ctx.device) < n
+        ctx.recovery.finish()
 
     tl = timeline.enabled()
     fbase = timeline.new_flow_base() if tl else 0
@@ -1168,6 +1170,7 @@ def _exec_streamed(agg: Aggregate, scan: Scan, memo: dict,
                     chunk = slice_table(chunk, 0, nvalid)
                 partials.extend(_stream_partial(agg, scan, chunk, memo,
                                                 stats, ctx))
+            ctx.recovery.finish()
         else:
             stats["nodes"] += len(seg.chain)  # agg counted by _exec
             qm = metrics.current()
@@ -1253,6 +1256,7 @@ def _exec_streamed(agg: Aggregate, scan: Scan, memo: dict,
                     metrics.mem_checkpoint(ctx.device)
                 if dd is not None:
                     dd["rows"] += int(nvalid)
+            ctx.recovery.finish()
             if fused:
                 stats["fused_segments"] += 1
             if dd is not None:
@@ -1469,6 +1473,7 @@ def _exec_topk(node: TopK, memo: dict, stats: dict, ctx: _ExecCtx) -> Table:
                                 time.perf_counter() - tc0)
                 metrics.observe("engine.stream.chunk_rows", chunk.num_rows)
                 metrics.mem_checkpoint(ctx.device)
+        ctx.recovery.finish()
     finally:
         reader.close()
     stats["row_groups_pruned"] += reader.groups_pruned
@@ -1539,7 +1544,9 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
     ``fused``/``prefetch`` override ``config.fuse``/``config.prefetch`` for
     this execution.  ``cancel`` (utils.errors.CancelToken) makes the
     execution cooperatively cancellable at chunk boundaries; with no token,
-    ``config.query_timeout_s > 0`` installs a deadline-only token.
+    ``config.query_timeout_s > 0`` installs a deadline-only token.  Over
+    ranks the ranks vote on their tokens at every chunk boundary and
+    gather, and all raise together (engine/recovery.py).
 
     ``session`` (engine.scheduler.QuerySession, optional) makes the
     execution a scheduled tenant: chunk boundaries become fair-share
@@ -1565,7 +1572,8 @@ def execute(plan: PlanNode, stats: Optional[dict] = None,
                    fuse=config.fuse if fused is None else bool(fused),
                    prefetch=config.prefetch if prefetch is None
                    else int(prefetch),
-                   recovery=RecoveryPolicy(cancel=cancel, session=session),
+                   recovery=RecoveryPolicy(cancel=cancel, session=session,
+                                           ranks=ranks),
                    device=dev, stats=stats, ranks=ranks)
     if config.aqe or config.fuse_exchange:
         # a cached optimized plan is re-executed object-identical: strip

@@ -125,6 +125,17 @@ def _annotate(span: Optional[dict], ceiling: Optional[float] = None,
             bits.append(f"GB/s={rf['GBps']:.3f}")
         if rf["roofline_frac"] is not None:
             bits.append(f"roofline_frac={rf['roofline_frac']:.6f}")
+    wire = int(span.get("wire_bytes", 0))
+    if wire:
+        # exchange cost against the same ceiling: wire bytes over this
+        # node's wall time, how close the exchange ran to the roof
+        bits.append(f"wire_bytes={wire}")
+        wall = span.get("wall_s") or 0.0
+        if wall > 0:
+            gbps = wire / wall / 1e9
+            bits.append(f"exch_GB/s={gbps:.3f}")
+            if ceiling:
+                bits.append(f"exch_roofline_frac={gbps / ceiling:.6f}")
     if span.get("decode"):
         # device-decode routing verdict on a scan: which side decoded
         # the pages, what the link carried vs what the host path would
@@ -147,6 +158,8 @@ def _annotate(span: Optional[dict], ceiling: Optional[float] = None,
             bits.append(f"straggler={span['straggler_share']:.2f}")
         if span.get("max_dev_rows") is not None:
             bits.append(f"max_dev_rows={span['max_dev_rows']}")
+        if span.get("dev_rows"):
+            bits.append(f"dev_rows={list(span['dev_rows'])}")
     return "[" + " ".join(bits) + "]"
 
 
@@ -254,14 +267,14 @@ def explain_analyze(plan: PlanNode, stats: Optional[dict] = None,
                     fused: Optional[bool] = None,
                     prefetch: Optional[int] = None,
                     result_cache: bool = False,
-                    distribute: bool = False,
+                    distribute: Optional[bool] = None,
                     device=_device.DEFAULT) -> ExplainReport:
     """Optimize + execute ``plan`` on ``device`` and report per-node
     metrics.
 
     ``fused``/``prefetch`` pass through to ``execute`` (so both executor
     modes can be profiled on the same plan), ``distribute`` to
-    ``optimize``.  With ``config.metrics`` off
+    ``optimize`` (None: ``config.distribute``).  With ``config.metrics`` off
     the plan still runs and the tree still renders, but node annotations
     and the summary are empty.
 

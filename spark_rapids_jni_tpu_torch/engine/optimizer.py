@@ -648,9 +648,14 @@ def _stamp_partials(plan: PlanNode) -> None:
             object.__setattr__(low, "_partial", True)
 
 
-def optimize(plan: PlanNode, distribute: bool = False,
+def optimize(plan: PlanNode, distribute: Optional[bool] = None,
              ranks=None) -> PlanNode:
     """Apply all rewrite rules; returns a new plan (input untouched).
+
+    ``distribute`` turns the exchange planning on or off for this call;
+    left None it follows ``config.distribute``, as the JAX package's
+    follows ``SRJT_DIST``.  It is resolved here, before any rank plans, so
+    every rank of a group reads the same value.
 
     With ``ranks`` (a group of ``parallel/ranks.py``) this is a collective
     of that group: rank 0 plans and every rank receives rank 0's physical
@@ -658,8 +663,10 @@ def optimize(plan: PlanNode, distribute: bool = False,
     (``execute(ranks=)``); when rank 0's planning raises, every rank
     raises its error.  See ``_optimize`` for the rules."""
     from ..parallel import ranks as _ranks
-    return _ranks.on_root(lambda: _optimize(plan, distribute), ranks) \
-        if _ranks.active(ranks) else _optimize(plan, distribute)
+    from ..utils.config import config
+    dist = config.distribute if distribute is None else bool(distribute)
+    return _ranks.on_root(lambda: _optimize(plan, dist), ranks) \
+        if _ranks.active(ranks) else _optimize(plan, dist)
 
 
 def _optimize(plan: PlanNode, distribute: bool = False) -> PlanNode:

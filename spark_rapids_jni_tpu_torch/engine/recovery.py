@@ -29,6 +29,17 @@ the OOM ladder consults that budget first: a session within its own budget
 that runs out of memory is feeling a neighbour's pressure and retries the
 same rung once (``oom_retry_first``) instead of being degraded for
 someone else's allocation.
+
+Over a group of ranks (``parallel/ranks.py``) no rank raises a
+cancellation alone: another rank would wait for it in a collective until
+the group's timeout.  The token is the group's.  Every chunk boundary
+and every gather (``checkpoint``) is one reduction of each
+rank's cancel and expiry flags over the host group, with no card sync,
+and every rank raises the same typed error at the same boundary.  A rank
+whose chunk loop ends first votes on (``finish``) until every rank's has
+ended, so ranks that read different numbers of chunks stay in step.  The
+session's remaining budget is the group's minimum, and the fair-share
+gate is skipped: plans run one at a time over a group.
 """
 
 from __future__ import annotations
@@ -44,6 +55,9 @@ from ..utils.errors import (CancelToken, QueryCancelledError,
 
 _log = logging.getLogger(__name__)
 
+#: an unbudgeted rank's vote in the group's least remaining budget
+_NO_BUDGET = 1 << 62
+
 __all__ = ["RecoveryPolicy", "CancelToken", "QueryCancelledError",
            "QueryTimeoutError", "query_cancel_token"]
 
@@ -51,10 +65,17 @@ __all__ = ["RecoveryPolicy", "CancelToken", "QueryCancelledError",
 class RecoveryPolicy:
     """Per-query retry/degradation policy + cancellation token carrier."""
 
-    __slots__ = ("cancel", "session", "degradations", "_oom_retries")
+    __slots__ = ("cancel", "session", "degradations", "_oom_retries",
+                 "ranks", "group_cancel")
 
-    def __init__(self, cancel: Optional[CancelToken] = None, session=None):
-        self.cancel = cancel
+    def __init__(self, cancel: Optional[CancelToken] = None, session=None,
+                 ranks=None):
+        from ..parallel import ranks as _ranks
+        self.ranks = ranks if _ranks.active(ranks) else None
+        # over ranks the token is only voted on (``_vote``): the readers and
+        # retries below see no token, so none raises on one rank alone
+        self.group_cancel = cancel if self.ranks is not None else None
+        self.cancel = cancel if self.ranks is None else None
         self.session = session
         self.degradations: list[dict] = []
         self._oom_retries: set[str] = set()
@@ -71,11 +92,41 @@ class RecoveryPolicy:
     def checkpoint(self) -> None:
         """Chunk-boundary cancellation/deadline check — and, with a
         session attached, the fair-share scheduling point (no-op when
-        untokened and unscheduled)."""
+        untokened and unscheduled).  Over ranks: the group's vote."""
+        if self.ranks is not None:
+            self._vote(1)
+            return
         if self.cancel is not None:
             self.cancel.check()
         if self.session is not None:
             self.session.gate()
+
+    def finish(self) -> None:
+        """The end of a chunk loop: over ranks, vote "done" until every
+        rank's loop has ended; nothing without a group."""
+        if self.ranks is not None:
+            while self._vote(0):
+                pass
+
+    def _vote(self, active: int) -> int:
+        """One host-group reduction of every rank's (active, cancelled,
+        expired) flags; raises the typed cancellation on every rank when
+        any rank's token tripped, else returns how many ranks are still
+        active."""
+        from ..parallel import ranks as _ranks
+        tok = self.group_cancel
+        votes = _ranks.host_gather_ints(
+            [active, tok is not None and tok.cancelled,
+             tok is not None and tok.expired], self.ranks)
+        if any(v[1] or v[2] for v in votes):
+            if tok is not None:
+                tok.check()  # this rank's own token: its own message
+            if any(v[1] for v in votes):
+                raise QueryCancelledError(
+                    "query cancelled: cancelled on rank "
+                    f"{next(r for r, v in enumerate(votes) if v[1])}")
+            raise QueryTimeoutError("query deadline exceeded")
+        return sum(v[0] for v in votes)
 
     # -- session memory budget -----------------------------------------------
 
@@ -87,10 +138,17 @@ class RecoveryPolicy:
             self.session.charge(nbytes)
 
     def session_budget_remaining(self) -> Optional[int]:
-        """Remaining session budget in bytes; ``None`` = unbudgeted."""
-        if self.session is None:
-            return None
-        return self.session.budget_remaining()
+        """Remaining session budget in bytes; ``None`` = unbudgeted.  Over
+        ranks the group's least (only rank 0 holds the session), so every
+        rank sizes the same passes from it."""
+        rem = None if self.session is None else \
+            self.session.budget_remaining()
+        if self.ranks is None:
+            return rem
+        from ..parallel import ranks as _ranks
+        low = _ranks.host_min(_NO_BUDGET if rem is None else int(rem),
+                              self.ranks)
+        return None if low == _NO_BUDGET else low
 
     # -- degradation ---------------------------------------------------------
 

@@ -14,7 +14,10 @@ together in rank order are the one-process table.
   library never swaps one backend for the other.
 - ``spawn`` runs a function on ``world`` fresh processes over a
   ``FileStore`` (no TCP port) and returns each rank's result, raising when
-  any rank fails or the whole run outlasts its timeout.
+  any rank fails or the whole run outlasts its timeout.  ``launch`` starts
+  them without waiting and returns their process handles, for a group that
+  outlives one call (the ranked bridge server's): the caller may be rank 0
+  itself (``Launched.join``).
 - The collectives the exchange layer needs: row gathers of unequal blocks,
   the equal-split all-to-all, sums and maxima, and ``on_root`` (one rank
   computes, every rank receives, a failure reaches every rank).  Data
@@ -166,6 +169,31 @@ def host_sum(value: int, ranks: Ranks) -> int:
     return sum(v[0] for v in host_gather_ints([value], ranks))
 
 
+def host_min(value: int, ranks: Ranks) -> int:
+    return min(v[0] for v in host_gather_ints([value], ranks))
+
+
+#: what gloo and NCCL say when a collective fails: a peer is gone, or the
+#: group's timeout passed (after which a gloo group is unusable)
+_GROUP_FAILURES = ("Connection closed by peer", "Connection reset by peer",
+                   "pair closure", "Timed out waiting", "gloo/transport",
+                   "NCCL error")
+
+
+def is_group_failure(e: BaseException) -> bool:
+    """True when ``e``, or an error it was raised from, is a collective
+    that failed (torch raises these as ``torch.distributed.DistError`` or
+    a RuntimeError naming the transport): the group is out of step."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, getattr(dist, "DistError", ())) or \
+                any(m in str(e) for m in _GROUP_FAILURES):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
 def broadcast_object(obj, ranks: Ranks, src: int = 0):
     """Rank ``src``'s ``obj`` on every rank (pickled over the host group)."""
     if not active(ranks):
@@ -292,6 +320,107 @@ def _to_host(obj):
     return obj
 
 
+class Launched:
+    """The rank processes ``launch`` started, one ``multiprocessing``
+    process a rank (``procs``: rank -> process, each a handle to poll, kill
+    and wait on), over one ``FileStore`` in the work directory ``work``.
+    A rank the launcher did not start joins from its own process with
+    ``join``.  ``close`` stops what still runs and removes the work
+    directory."""
+
+    def __init__(self, procs: dict, work: str, backend: str, world: int,
+                 timeout: float):
+        self.procs = procs
+        self.work = work
+        self.backend = backend
+        self.world = world
+        self.timeout = timeout
+
+    @property
+    def init_method(self) -> str:
+        return f"file://{os.path.join(self.work, 'store')}"
+
+    def join(self, rank: int, device=_device.DEFAULT) -> Ranks:
+        """Join the group from the calling process as ``rank``."""
+        return init_ranks(self.backend, rank, self.world, self.init_method,
+                          device, self.timeout)
+
+    def exitcodes(self) -> dict:
+        """rank -> exit code of every started rank (None: running)."""
+        return {r: p.exitcode for r, p in self.procs.items()}
+
+    def failed(self) -> list:
+        """The started ranks that exited with a code other than 0."""
+        return [r for r, c in self.exitcodes().items() if c not in (None, 0)]
+
+    def running(self) -> bool:
+        return any(c is None for c in self.exitcodes().values())
+
+    def failure(self, ranks_) -> str:
+        """Each of ``ranks_``'s exit code and traceback, a line a rank."""
+        return _failure(self.work, ranks_, self.procs)
+
+    def results(self) -> list:
+        """What each started rank's function returned, in rank order."""
+        out = []
+        for r in sorted(self.procs):
+            with open(os.path.join(self.work, f"result-{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    def wait(self, timeout: float) -> bool:
+        """Wait up to ``timeout`` seconds for every started rank to exit;
+        True when none is left running."""
+        deadline = time.monotonic() + timeout
+        for p in self.procs.values():
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        return not self.running()
+
+    def close(self) -> None:
+        """Kill the ranks still running, reap them all, remove the work
+        directory."""
+        started = [p for p in self.procs.values() if p.pid is not None]
+        for p in started:
+            if p.exitcode is None:
+                p.kill()
+        for p in started:
+            p.join(timeout=10)
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def launch(fn, world: int, backend: str, devices, timeout: float = 120.0,
+           args: tuple = (), first: int = 0) -> Launched:
+    """Start ranks ``first`` .. ``world - 1`` of a group of ``world`` on new
+    processes, rank ``r`` on ``devices[r]``, each running ``fn(ranks,
+    *args)`` once it has joined, and return their handles without waiting:
+    a long-lived group (the bridge server's) keeps running while its
+    caller, rank 0 with ``first=1``, joins it with ``Launched.join``.
+
+    ``fn`` must be importable by name (a module-level function of a module
+    that a fresh interpreter can import); ``timeout`` bounds every
+    collective of the group."""
+    import torch.multiprocessing as mp
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    if not 0 <= first <= world:
+        raise ValueError(f"first rank {first} outside a world of {world}")
+    ctx = mp.get_context("spawn")
+    work = tempfile.mkdtemp(prefix="ranks-")
+    store = os.path.join(work, "store")
+    procs = {r: ctx.Process(target=_child, daemon=True,
+                            args=(fn, r, world, backend, str(devices[r]),
+                                  store, timeout, args, work))
+             for r in range(first, world)}
+    started = Launched(procs, work, backend, world, timeout)
+    try:
+        for p in procs.values():
+            p.start()
+    except BaseException:
+        started.close()
+        raise
+    return started
+
+
 def spawn(fn, world: int, backend: str, devices, timeout: float = 120.0,
           args: tuple = ()) -> list:
     """Run ``fn(ranks, *args)`` on ``world`` new processes, rank ``r`` on
@@ -302,46 +431,24 @@ def spawn(fn, world: int, backend: str, devices, timeout: float = 120.0,
     out after ``timeout`` seconds; the launcher waits that long plus the
     processes' start, and raises when a rank fails (its traceback in the
     message) or the run outlasts that, after stopping every rank."""
-    import torch.multiprocessing as mp
-    if len(devices) != world:
-        raise ValueError(f"{len(devices)} devices for {world} ranks")
-    ctx = mp.get_context("spawn")
-    work = tempfile.mkdtemp(prefix="ranks-")
-    store = os.path.join(work, "store")
-    procs = [ctx.Process(target=_child, daemon=True,
-                         args=(fn, r, world, backend, str(devices[r]),
-                               store, timeout, args, work))
-             for r in range(world)]
+    started = launch(fn, world, backend, devices, timeout, args)
     try:
-        for p in procs:
-            p.start()
         deadline = time.monotonic() + float(timeout) + 60.0
-        while any(p.exitcode is None for p in procs):
-            failed = [r for r, p in enumerate(procs)
-                      if p.exitcode not in (None, 0)]
+        while started.running():
+            failed = started.failed()
             if failed:
-                raise RuntimeError(_failure(work, failed, procs))
+                raise RuntimeError(started.failure(failed))
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"ranks still running after {timeout:.0f} s + start: "
-                    + _failure(work, range(world), procs))
+                    + started.failure(range(world)))
             time.sleep(0.05)
-        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        failed = started.failed()
         if failed:
-            raise RuntimeError(_failure(work, failed, procs))
-        out = []
-        for r in range(world):
-            with open(os.path.join(work, f"result-{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-        return out
+            raise RuntimeError(started.failure(failed))
+        return started.results()
     finally:
-        started = [p for p in procs if p.pid is not None]
-        for p in started:
-            if p.exitcode is None:
-                p.kill()
-        for p in started:
-            p.join(timeout=10)
-        shutil.rmtree(work, ignore_errors=True)
+        started.close()
 
 
 def _failure(work, ranks_, procs) -> str:

@@ -60,6 +60,9 @@ _seq = itertools.count(1)
 _exec_ids = itertools.count(1)
 #: execution-scope key -> bundle path (one bundle per query execution)
 _bundled: dict[str, str] = {}
+#: a rank of the ranked bridge server other than 0 ends its bundles' names
+#: with ``-rank<r>`` (``set_rank``), so the ranks can share a directory
+_name_tag = ""
 #: trace_id -> newest bundle path (the bridge error reply's pointer)
 _last_by_trace: dict[str, str] = {}
 
@@ -274,7 +277,7 @@ def post_mortem(reason: str, exc: BaseException | None = None,
         os.makedirs(d, exist_ok=True)
         path = os.path.join(
             d, f"blackbox-{time.time_ns():020d}-{(tid or 'notrace')[:12]}"
-               ".json")
+               f"{_name_tag}.json")
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(doc, f, separators=(",", ":"), default=str)
@@ -315,6 +318,12 @@ def last_bundle(trace_id: str = "") -> str | None:
         return None
     with _lock:
         return _last_by_trace.get(trace_id)
+
+
+def set_rank(rank: int) -> None:
+    """Name this process's bundles after its rank (none for rank 0)."""
+    global _name_tag
+    _name_tag = f"-rank{rank}" if rank else ""
 
 
 def list_bundles(dir_path: str | None = None) -> list:

@@ -24,6 +24,7 @@ time of use.
 | ``device_decode``   | ``None``  | streamed scans decode pages on the device: ``None`` on a card target, ``True``/``False`` pin a route |
 | ``shards``          | ``None``  | shards of the engine's mesh over every rank: ``None`` is one a rank (1 without a group of ranks, ``parallel/ranks.py``) |
 | ``broadcast_rows``  | ``100000``| distributed planning replicates a join build of at most this many estimated rows |
+| ``distribute``      | ``False`` | ``optimize`` and ``explain_analyze`` plan exchanges when their caller leaves ``distribute`` unset (JAX: ``SRJT_DIST``) |
 | ``spill_dir``       | ``None``  | host directory of the spilled exchange's buffers (``None``: host memory) |
 | ``query_timeout_s`` | ``0.0``   | cooperative per-query deadline (0 = none) |
 | ``roofline_gbps``   | ``0.0``   | device bandwidth ceiling for explain's ``roofline_frac`` (0 = none) |
@@ -77,6 +78,7 @@ class Config:
     device_decode: Optional[bool] = None
     shards: Optional[int] = None
     broadcast_rows: int = 100_000
+    distribute: bool = False
     spill_dir: Optional[str] = None
     query_timeout_s: float = 0.0
     roofline_gbps: float = 0.0

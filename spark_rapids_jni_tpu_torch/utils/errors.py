@@ -21,6 +21,8 @@ Taxonomy (one ``kind`` per exception + a retryable bit):
 - ``cancelled``  — cooperative cancellation or deadline expiry; never
   retried, never degraded.
 - ``fatal``      — everything else (bugs, bad plans, corrupt data).
+- ``ranks_lost`` — the ranked server's group of processes is gone (a rank
+  died or fell out of step); the port's only kind the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ KIND_TRANSIENT = "transient"
 KIND_RESOURCE = "resource"
 KIND_CANCELLED = "cancelled"
 KIND_FATAL = "fatal"
+KIND_RANKS_LOST = "ranks_lost"
 
-KINDS = (KIND_TRANSIENT, KIND_RESOURCE, KIND_CANCELLED, KIND_FATAL)
+KINDS = (KIND_TRANSIENT, KIND_RESOURCE, KIND_CANCELLED, KIND_FATAL,
+         KIND_RANKS_LOST)
 
 
 class EngineError(RuntimeError):
@@ -87,6 +91,16 @@ class BridgeTimeoutError(TransientError, TimeoutError):
     """A bridge socket op exceeded its deadline."""
 
 
+class RankGroupLostError(EngineError):
+    """The ranked server's group of processes is gone: a rank died, or a
+    collective failed alone on one rank and left the others out of step
+    (``bridge/ranked.py``).  Not retryable on the same server: every
+    later plan gets this error at once, until the server is restarted."""
+
+    kind = KIND_RANKS_LOST
+    retryable = False
+
+
 #: substrings that mark a runtime allocation failure (torch raises
 #: ``torch.cuda.OutOfMemoryError`` saying "out of memory"; host numpy raises
 #: MemoryError directly)
@@ -132,12 +146,14 @@ _WIRE_TYPES = {
     "QueryTimeoutError": QueryTimeoutError,
     "BridgeTimeoutError": BridgeTimeoutError,
     "CodecUnavailableError": CodecUnavailableError,
+    "RankGroupLostError": RankGroupLostError,
 }
 
 _KIND_FALLBACK = {
     KIND_TRANSIENT: TransientError,
     KIND_RESOURCE: ResourceExhaustedError,
     KIND_CANCELLED: QueryCancelledError,
+    KIND_RANKS_LOST: RankGroupLostError,
 }
 
 
