@@ -2878,6 +2878,17 @@ ALL_KERNELS = ("interleave_planes", "deinterleave_wire") + DECODE_KERNELS
 SHARDS = 8                 # the JAX package's 8-device mesh, on one card
 
 
+def launch_devices(tracing) -> dict:
+    """device -> {kernel: launches} since the ``kernel_device.`` counters
+    were last reset (``kernels/nvcc.py::launch`` counts each launch under
+    the card its tensors lie on)."""
+    out: dict = {}
+    for key, v in tracing.counters_snapshot("kernel_device.").items():
+        fn, dev = key[len("kernel_device.srjt_"):].split(".", 1)
+        out.setdefault(dev, {})[fn] = v
+    return out
+
+
 def kernel_launches(tracing) -> dict:
     """Every kernel wrapper's launch count since the last reset."""
     return {k: tracing.counter_value("kernel." + k) for k in ALL_KERNELS}
@@ -2950,6 +2961,8 @@ def _same_values(torch, a, b) -> bool:
         to_padded_bytes
     if a.dtype != b.dtype or a.size != b.size:
         return False
+    if a.size == 0:
+        return True
     va, vb = a.valid_mask(), b.valid_mask().to(a.valid_mask().device)
     if not torch.equal(va, vb):
         return False
@@ -3593,6 +3606,7 @@ def phase_bridge(torch, root, tracing, n: int, seed: int) -> dict:
     Every error reply the phase did not ask for fails it."""
     import shutil
     import threading
+    from spark_rapids_jni_tpu_torch import device
     from spark_rapids_jni_tpu_torch import engine as pe
     from spark_rapids_jni_tpu_torch.bridge import BridgeClient, spawn_server
     from spark_rapids_jni_tpu_torch.bridge import shm as shmlib
@@ -3637,7 +3651,8 @@ def phase_bridge(torch, root, tracing, n: int, seed: int) -> dict:
               f"{res.stderr}")
         c2 = BridgeClient(sock2, device="cpu")
         m2 = c2.metrics()
-        check(m2["device"] == DEV and m2["errors"] == 2,
+        check(m2["device"] == str(device.resolve(DEV))
+              and m2["errors"] == 2,
               "the spawned server ran on the card (its two errors: the "
               "harness's deliberate bad handle and double release)")
         c2.shutdown_server()
@@ -4394,6 +4409,8 @@ def _phase_nested(torch, root, tracing, n: int, seed: int) -> dict:
 RANKS_TIMEOUT = 300.0   # seconds a rank's collective may wait
 RANK_AGGS = [("i64", "sum"), ("i64", "count"), ("f64", "min"),
              ("f64", "max")]
+MULTISLICE = ("dcn", "shard")   # rows over both axes of a multislice mesh
+MULTISLICE_AGGS = [("i64", "sum"), ("i64", "count")]
 
 
 def _rank_wall(torch, dev, fn):
@@ -4464,12 +4481,13 @@ def _rank_stage_table(torch, n: int, seed: int, dev):
 
 
 def rank_phase(ranks, root, n: int, n_str: int, seed: int,
-               plans: bool) -> dict:
+               plans: bool, multislice: bool = False) -> dict:
     """One rank of the ranks phase (run in its own process by
     ``parallel.ranks.spawn``): the INT32-key and STRING-key shuffles and,
-    with ``plans``, the distributed groupby and join and engine q5."""
+    with ``plans``, the distributed groupby and join and engine q5; with
+    ``multislice`` too, the groupby and the full join on a (2, W / 2)
+    multislice mesh over the ranks."""
     import torch
-    from spark_rapids_jni_tpu_torch import engine as pe
     from spark_rapids_jni_tpu_torch.columnar import Column, Table
     from spark_rapids_jni_tpu_torch.dtypes import INT32, INT64
     from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
@@ -4519,20 +4537,83 @@ def rank_phase(ranks, root, n: int, n_str: int, seed: int,
     dk = torch.arange(100_000, device=dev)
     dim = Table([Column(INT32, data=dk.to(torch.int32)),
                  Column(INT64, data=dk * 3)], ["k", "v"])
+
+    def blocks(t):
+        k = t.num_rows
+        return slice_table(t, r * k // w, (r + 1) * k // w - r * k // w)
+
     got, js = _rank_wall(torch, dev, lambda: dist.distributed_join(
-        slice_table(fact, r * m // w, (r + 1) * m // w - r * m // w),
-        slice_table(dim, r * 100_000 // w, 100_000 // w), mesh, ["k"]))
+        blocks(fact), blocks(dim), mesh, ["k"]))
     got = pmesh.gather_table(got, ranks)
     check(_tables_equal(torch, _sorted_by(torch, got, "row"),
                         _sorted_by(torch, inner_join(fact, dim, ["k"],
                                                      device=dev), "row")),
           f"rank {r}: distributed join over the ranks == one device")
     out["join"] = {"s": js, "rows_out": got.num_rows}
+    if multislice:
+        out["multislice"] = _rank_multislice(torch, ranks, table, blk, fact,
+                                             dim, blocks)
     for k, v in kernel_launches(tracing).items():
         launches[k] += v
     del table, blk, fact
 
-    # engine q5: rank 0 plans, every rank runs its row groups
+    eng = rank_engine_q5(ranks, root)
+    for k, v in eng["launches"].items():
+        launches[k] += v
+    out["engine_q5"] = eng
+    out["launches"] = launches
+    return out
+
+
+def _rank_multislice(torch, ranks, table, blk, fact, dim, blocks) -> dict:
+    """The groupby (sum, count) and the full join with ``axis=("dcn",
+    "shard")`` on a (2, W / 2) multislice mesh laid over the ranks, each
+    gathered and held against one device."""
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby
+    from spark_rapids_jni_tpu_torch.ops.join import sort_merge_join
+    from spark_rapids_jni_tpu_torch.parallel import distributed as dist
+    from spark_rapids_jni_tpu_torch.parallel import mesh as pmesh
+    r, w, dev = ranks.rank, ranks.world, ranks.device
+    m2 = pmesh.make_multislice_mesh(2, w // 2, device=dev, ranks=ranks)
+    rec = {"mesh": [2, w // 2]}
+    got, rec["groupby_s"] = _rank_wall(torch, dev, lambda: (
+        dist.distributed_groupby(blk, m2, ["i32"], MULTISLICE_AGGS,
+                                 axis=MULTISLICE)))
+    got = _sorted_by(torch, pmesh.gather_table(got, ranks), "i32")
+    want = groupby(table, ["i32"], MULTISLICE_AGGS, device=dev)
+    check(_tables_equal(torch, got, want),
+          f"rank {r}: multislice groupby over the ranks == one device")
+    rec["groups"] = got.num_rows
+    got, rec["full_join_s"] = _rank_wall(torch, dev, lambda: (
+        dist.distributed_join(blocks(fact), blocks(dim), m2, ["k"],
+                              how="full", axis=MULTISLICE)))
+    got = pmesh.gather_table(got, ranks)
+    want = sort_merge_join(fact, dim, ["k"], how="full", device=dev)
+    # fact rows by their unique row, then the dimension's unmatched rows
+    # by their unique v
+    parts = []
+    for t in (got, want):
+        has = t["row"].valid_mask()
+        parts.append((_sorted_by(torch, _live_table(torch, t, has), "row"),
+                      _sorted_by(torch, _live_table(torch, t, ~has), "v")))
+    check(got.num_rows == want.num_rows and all(
+        _tables_equal(torch, a, b) for a, b in zip(*parts)),
+          f"rank {r}: multislice full join over the ranks == one device")
+    rec["join_rows"] = got.num_rows
+    return rec
+
+
+def rank_engine_q5(ranks, root) -> dict:
+    """Engine q5 planned on rank 0 with distribute=True, broadcast and run
+    on every rank over its row groups, cold and warm, against the
+    one-process plan; on a card K3, W1 and W2 counted on this rank, and
+    every one of them on this rank's card."""
+    import torch
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.utils import tracing
+    check(not {"jax", "spark_rapids_jni_tpu"} & set(sys.modules),
+          "a rank imports neither jax nor the JAX package")
+    r, dev = ranks.rank, ranks.device
     plan = q5_engine_plan(root, *Q5_DATES)
     base = pe.execute(pe.optimize(plan), device=dev)
     with settings(shards=SHARDS):
@@ -4542,9 +4623,11 @@ def rank_phase(ranks, root, n: int, n_str: int, seed: int,
             opt, device=dev, ranks=ranks))
         stats = pe.new_stats()
         tracing.reset_counters("kernel.")
+        tracing.reset_counters("kernel_device.")
         res, eng["warm_s"] = _rank_wall(torch, dev, lambda: pe.execute(
             opt, stats=stats, device=dev, ranks=ranks))
         eng["launches"] = kernel_launches(tracing)
+        eng["launch_devices"] = launch_devices(tracing)
     eng.update(exchanges=stats["exchanges"],
                row_groups_read=stats["row_groups_read"],
                plan=opt.fingerprint())
@@ -4554,10 +4637,55 @@ def rank_phase(ranks, root, n: int, n_str: int, seed: int,
     if dev.type == "cuda":
         check(all(eng["launches"][k] > 0 for k in DECODE_KERNELS),
               f"rank {r}: engine q5 launched K3, W1 and W2 on this rank")
-    for k, v in eng["launches"].items():
-        launches[k] += v
-    out["engine_q5"] = eng
-    out["launches"] = launches
+        check(set(eng["launch_devices"]) == {str(dev)} and all(
+            eng["launch_devices"][str(dev)].get(k, 0) == eng["launches"][k]
+            for k in DECODE_KERNELS),
+              f"rank {r}: every kernel of engine q5 took tensors on {dev}: "
+              f"{eng['launch_devices']}")
+    return eng
+
+
+def _collectives(torch, ranks, nbytes: int) -> dict:
+    """NCCL's ``all_to_all_single``, ``all_reduce`` and ``all_gather``
+    over the group on an int32 tensor of about ``nbytes`` bytes a rank
+    (the shuffle grid's): each checked once, then timed (the median of 5
+    warm runs, on this rank's clock)."""
+    import torch.distributed as tdist
+    dev, w, r, g = ranks.device, ranks.world, ranks.rank, ranks.group
+    n = nbytes // 4 // w * w
+    # rank r's element i is (i mod 2^16) + r * 2^16: every block says
+    # where it came from
+    base = torch.arange(n, device=dev, dtype=torch.int32) % (1 << 16)
+    grid = base + r * (1 << 16)
+    recv = torch.empty_like(grid)
+    tdist.all_to_all_single(recv, grid, group=g)
+    blk = n // w
+    want = torch.cat([base[r * blk:(r + 1) * blk] + s * (1 << 16)
+                      for s in range(w)])
+    red = grid.clone()
+    tdist.all_reduce(red, group=g)
+    gath = [torch.empty_like(grid) for _ in range(w)]
+    tdist.all_gather(gath, grid, group=g)
+    check(torch.equal(recv, want)
+          and torch.equal(red, base * w + (1 << 16) * (w * (w - 1) // 2))
+          and all(torch.equal(x, base + s * (1 << 16))
+                  for s, x in enumerate(gath)),
+          f"rank {r}: NCCL all_to_all, all_reduce and all_gather over "
+          f"{w} rank(s)")
+    del want, red
+
+    def med(fn):
+        return sorted(_rank_wall(torch, dev, fn)[1] for _ in range(5))[2]
+
+    out = {"bytes": n * 4, "ranks": w}
+    _, out["a2a_cold_s"] = _rank_wall(torch, dev, lambda: (
+        tdist.all_to_all_single(recv, grid, group=g)))
+    out["a2a_ms"] = med(lambda: tdist.all_to_all_single(recv, grid,
+                                                        group=g)) * 1e3
+    out["all_reduce_ms"] = med(lambda: tdist.all_reduce(recv,
+                                                        group=g)) * 1e3
+    out["all_gather_ms"] = med(lambda: tdist.all_gather(gath, grid,
+                                                        group=g)) * 1e3
     return out
 
 
@@ -4566,7 +4694,6 @@ def rank_nccl_one(ranks, n: int, seed: int) -> dict:
     crosses) held against the one-process shuffle, then NCCL's own
     collectives over the group at the grid's size, timed."""
     import torch
-    import torch.distributed as tdist
     from spark_rapids_jni_tpu_torch.parallel import mesh as pmesh
     check(not {"jax", "spark_rapids_jni_tpu"} & set(sys.modules),
           "a rank imports neither jax nor the JAX package")
@@ -4577,32 +4704,15 @@ def rank_nccl_one(ranks, n: int, seed: int) -> dict:
            "backend": ranks.backend, "device": str(dev)}
     out["int32_key"] = _rank_shuffle(torch, ranks, table, "i32", mesh,
                                      pmesh.make_mesh(SHARDS, device=dev))
-    grid = torch.randint(0, 1 << 30, (out["int32_key"]["grid_bytes"] // 4,),
-                         dtype=torch.int32, device=dev)
-    recv = torch.empty_like(grid)
-
-    def a2a():
-        tdist.all_to_all_single(recv, grid, group=ranks.group)
-
-    _, out["a2a_cold_s"] = _rank_wall(torch, dev, a2a)
-    out["a2a_ms"] = sorted(_rank_wall(torch, dev, a2a)[1]
-                           for _ in range(5))[2] * 1e3
-    red = grid[:1024].to(torch.int64)
-    tdist.all_reduce(red, group=ranks.group)
-    gath = [torch.empty_like(grid[:1024]) for _ in range(ranks.world)]
-    tdist.all_gather(gath, grid[:1024], group=ranks.group)
-    check(torch.equal(recv, grid) and torch.equal(
-        red, grid[:1024].to(torch.int64) * ranks.world)
-          and all(torch.equal(g, grid[:1024]) for g in gath),
-          "NCCL all_to_all, all_reduce and all_gather over the group")
+    del table
+    out.update(_collectives(torch, ranks, out["int32_key"]["grid_bytes"]))
     return out
 
 
 def phase_ranks(torch, root, n: int, n_str: int, seed: int) -> dict:
-    """Two gloo ranks sharing the card, one NCCL rank, NCCL's refusal of
-    two ranks on one card, and NCCL one rank a card where there are two
-    cards or more.  Any rank's failure, or a run past its timeout, raises
-    here."""
+    """Two gloo ranks sharing the card, one NCCL rank, and NCCL's refusal
+    of two ranks on one card (NCCL one rank a card: phase ``cards``).  Any
+    rank's failure, or a run past its timeout, raises here."""
     from spark_rapids_jni_tpu_torch.parallel import ranks as pranks
     out = {"phase": "ranks", "shards": SHARDS, "rows": n,
            "string_rows": n_str}
@@ -4629,18 +4739,6 @@ def phase_ranks(torch, root, n: int, n_str: int, seed: int) -> dict:
     check("two ranks on one device" in refused,
           "NCCL is refused for two ranks on one card, before it can hang")
     out["nccl_two_on_one_card_refused_s"] = time.perf_counter() - t0
-    cards = torch.cuda.device_count()
-    world = max((k for k in (8, 4, 2) if k <= cards), default=0)
-    if world:
-        t0 = time.perf_counter()
-        out["nccl_cards"] = pranks.spawn(
-            rank_phase, world, "nccl", [f"cuda:{i}" for i in range(world)],
-            RANKS_TIMEOUT, args=(str(root), n, n_str, seed, False))
-        out["nccl_cards_s"] = time.perf_counter() - t0
-    else:
-        print(f"ranks: NCCL with one rank a card not run: this host has "
-              f"{cards} card", flush=True)
-        out["nccl_cards"] = f"not run: {cards} card"
     for name, recs in (("gloo, host-staged, 2 ranks on one card", gloo),
                        ("nccl, 1 rank", [nccl])):
         for rec in recs:
@@ -4685,19 +4783,38 @@ def _alive(pid: int) -> bool:
 
 
 def start_ranked_server(sock_dir, world: int, backend: str,
-                        devices: list) -> dict:
+                        devices: list, name: str = "", **extra) -> dict:
     """``--ranks world --backend backend --devices ... --set
-    distribute=true --set shards=8``, started and answering a ping."""
+    distribute=true --set shards=8`` (and ``--set k=v`` of ``extra``),
+    started and answering a ping."""
     from spark_rapids_jni_tpu_torch.bridge import spawn_server
-    name = f"{backend}x{world}"
+    name = name or f"{backend}x{world}"
     srv = {"name": name, "sock": str(sock_dir / f"{name}.sock"),
            "world": world, "backend": backend, "devices": devices}
     t0 = time.perf_counter()
     srv["proc"] = spawn_server(srv["sock"], settings={
-        "distribute": "true", "shards": SHARDS}, ranks=world,
+        "distribute": "true", "shards": SHARDS, **extra}, ranks=world,
         backend=backend, devices=devices, timeout=300)
     srv["start_s"] = time.perf_counter() - t0
     return srv
+
+
+def check_rank_devices(reports: list, devices: list, name: str) -> None:
+    """Each rank's report of its last plan names its own device, and on a
+    card every kernel it launched took tensors there and no other card of
+    its process ever held one."""
+    check(sorted(r["rank"] for r in reports) == list(range(len(devices)))
+          and all(r["device"] == devices[r["rank"]] for r in reports),
+          f"{name}: every rank reported its own device")
+    for r in reports:
+        dev = r["device"]
+        if not dev.startswith("cuda"):
+            continue
+        on = {k.rsplit(".", 1)[1] for k in r["launch_devices"]}
+        check(on == {dev} and r["cards_with_tensors"] == [
+            int(dev.split(":")[1])],
+              f"{name}: rank {r['rank']}'s kernels and tensors lie on {dev} "
+              f"alone: {r['launch_devices']}, {r['cards_with_tensors']}")
 
 
 def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
@@ -4754,6 +4871,7 @@ def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
         check(all(r["launches"].get(k, 0) > 0 for r in reports
                   for k in DECODE_KERNELS),
               f"{name}: q5 launched K3, W1 and W2 on every rank")
+        check_rank_devices(reports, devices, name)
         if world > 1:
             check(all(r["row_groups_read"] > 0 for r in reports),
                   f"{name}: every rank read its own row groups")
@@ -4843,9 +4961,9 @@ def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
 def phase_bridge_ranks(torch, root, seed: int, bridge_warm_s: float,
                        ranks_warm_s: float) -> dict:
     """The device server over ranks (bridge/ranked.py): 2 gloo ranks
-    sharing the card, then 1 NCCL rank, then NCCL one rank a card where
-    the host has two cards or more.  The servers start together (their
-    processes' start is host work) and are driven one after another."""
+    sharing the card, then 1 NCCL rank (NCCL one rank a card: phase
+    ``cards``).  The servers start together (their processes' start is
+    host work) and are driven one after another."""
     from concurrent.futures import ThreadPoolExecutor
     from spark_rapids_jni_tpu_torch import engine as pe
     from spark_rapids_jni_tpu_torch.bridge import shm as shmlib
@@ -4854,17 +4972,8 @@ def phase_bridge_ranks(torch, root, seed: int, bridge_warm_s: float,
     t_phase = time.perf_counter()
     plan = q5_engine_plan(root, *Q5_DATES)
     want = engine_result(pe.execute(pe.optimize(plan), device=DEV))
-    cards = torch.cuda.device_count()
-    world = max((k for k in (8, 4, 2) if k <= cards), default=0)
     groups = {"gloo": (2, "gloo", ["cuda:0", "cuda:0"]),
               "nccl": (1, "nccl", ["cuda:0"])}
-    if world:
-        groups["nccl_cards"] = (world, "nccl",
-                                [f"cuda:{i}" for i in range(world)])
-    else:
-        print(f"bridge_ranks: NCCL with one rank a card not run: this "
-              f"host has {cards} card", flush=True)
-        out["nccl_cards"] = f"not run: {cards} card"
     sock_dir = Path(tempfile.mkdtemp(prefix="srjt-", dir=shmlib.SHM_DIR))
     futs = {}
     try:
@@ -4903,6 +5012,420 @@ def phase_bridge_ranks(torch, root, seed: int, bridge_warm_s: float,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 19. cards: the mesh and the device server on every card, one NCCL rank each
+# ---------------------------------------------------------------------------
+
+CARDS_BACKEND = "nccl"     # the cards phase's backend: one rank a card
+DRILL_SCAN_CHUNK = 1 << 16  # the scan the SIGKILL drill interrupts
+
+
+def cards_world(torch) -> int:
+    """The cards phase's ranks: the largest of 8, 4 and 2 that is at most
+    the host's card count (0 for one card)."""
+    cards = torch.cuda.device_count()
+    return max((k for k in (8, 4, 2) if k <= cards), default=0)
+
+
+def card_devices(world: int) -> list:
+    """The cards phase's devices, one a rank: cuda:0 .. cuda:W-1."""
+    return [f"cuda:{i}" for i in range(world)]
+
+
+def cuda_contexts() -> list:
+    """The cards on which this process holds a CUDA primary context
+    (``cuDevicePrimaryCtxGetState``): a thread that touched CUDA without
+    binding its card leaves one on card 0 even where it allocated no
+    tensor."""
+    import ctypes
+    import torch
+    if not torch.cuda.is_available():
+        return []
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    cu.cuDeviceGet.restype = ctypes.c_int
+    cu.cuDevicePrimaryCtxGetState.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint),
+        ctypes.POINTER(ctypes.c_int)]
+    cu.cuDevicePrimaryCtxGetState.restype = ctypes.c_int
+    out = []
+    for i in range(torch.cuda.device_count()):
+        dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        if cu.cuDeviceGet(ctypes.byref(dev), i) or \
+                cu.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags),
+                                              ctypes.byref(active)):
+            raise RuntimeError(f"cuDevicePrimaryCtxGetState failed for "
+                               f"card {i}")
+        if active.value:
+            out.append(i)
+    return out
+
+
+def rank_cards(ranks, root, n: int, n_str: int, seed: int) -> dict:
+    """One rank of the cards phase, one NCCL rank a card: ``rank_phase``
+    with its plans and the multislice mesh at full size, NCCL's
+    collectives across the cards at the shuffle grid's size, and this
+    rank's kernels and tensors on its own card alone."""
+    import torch
+    from spark_rapids_jni_tpu_torch import device as pdevice
+    from spark_rapids_jni_tpu_torch.utils import tracing
+    out = rank_phase(ranks, root, n, n_str, seed, True, multislice=True)
+    out["collectives"] = _collectives(torch, ranks,
+                                      out["int32_key"]["grid_bytes"])
+    dev = ranks.device
+    out["launch_devices"] = launch_devices(tracing)
+    out["cards_with_tensors"] = pdevice.cards_with_tensors()
+    # recorded, not checked: whether NCCL itself opens contexts on the
+    # peers' cards is not known here
+    out["cuda_contexts"] = cuda_contexts()
+    if dev.type == "cuda":
+        check(set(out["launch_devices"]) == {str(dev)}
+              and out["cards_with_tensors"] == [dev.index],
+              f"rank {ranks.rank}: every kernel launch and every tensor "
+              f"of this rank on {dev}: {out['launch_devices']}, "
+              f"{out['cards_with_tensors']}")
+    return out
+
+
+PEER_DIES_AFTER_S = 2.0     # the lost-peer probe's last rank lives this long
+PEER_DIES_WAIT_S = 120.0    # seconds the probe's ranks may take in all
+
+
+def rank_peer_dies(ranks, pid_dir: str) -> dict:
+    """One rank of the lost-peer probe.  Every rank joins and runs one
+    all_to_all; the last rank then lives ``PEER_DIES_AFTER_S`` more and
+    exits without a word, while the others wait in a second all_to_all
+    on their cards.  A thread on each of them aborts the group as soon as
+    that peer's process is gone (what the ranked server's watcher does):
+    the wait must end, a collective must raise a group failure, and the
+    card must still compute."""
+    import threading
+    import torch
+    import torch.distributed as tdist
+    from spark_rapids_jni_tpu_torch.parallel import ranks as pranks
+    r, w, dev = ranks.rank, ranks.world, ranks.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    with open(os.path.join(pid_dir, str(r)), "w") as f:
+        f.write(str(os.getpid()))
+    x = torch.ones(w << 20, dtype=torch.int32, device=dev)
+    recv = torch.empty_like(x)
+    tdist.all_to_all_single(recv, x, group=ranks.group)
+    sync()
+    if r == w - 1:
+        time.sleep(PEER_DIES_AFTER_S)
+        os._exit(9)
+    with open(os.path.join(pid_dir, str(w - 1))) as f:
+        peer = int(f.read())
+    seen = {}
+
+    def watch():
+        while _alive(peer):
+            time.sleep(0.01)
+        seen["dead"] = time.perf_counter()
+        pranks.abort(ranks)
+
+    threading.Thread(target=watch, daemon=True).start()
+    err = None
+    try:
+        tdist.all_to_all_single(recv, x, group=ranks.group)
+        sync()
+        tdist.all_reduce(x, group=ranks.group)
+        sync()
+    except Exception as e:  # noqa: BLE001 -- checked below
+        err = e
+    t_err = time.perf_counter()
+    check(err is not None and pranks.is_group_failure(err),
+          f"rank {r}: a collective raised a group failure once its peer "
+          f"died: {err!r}")
+    check(int(torch.arange(1000, device=dev).sum()) == 499500,
+          f"rank {r}: the card computes after the abort")
+    return {"rank": r, "death_to_error_s": t_err - seen["dead"],
+            "error": type(err).__name__, "message": str(err)[:200]}
+
+
+def ranked_server_drill(torch, root, srv: dict, want: dict) -> dict:
+    """The lost-group policy on a ranked server started with
+    ``result_cache``: q5 served and cached; SIGKILL of rank W-1 while a
+    scan of 64 KiB chunks runs must give that client
+    ``RankGroupLostError`` within ``RANK_TIMEOUT_S`` + 30 s; then rank 0
+    answers PING, serves the cached q5, round-trips rows through K1/K2 on
+    its card, refuses a new plan at once, and OP_SHUTDOWN leaves no rank
+    process."""
+    import signal
+    import threading
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import BridgeClient
+    from spark_rapids_jni_tpu_torch.bridge.ranked import RANK_TIMEOUT_S
+    from spark_rapids_jni_tpu_torch.columnar.interop import (
+        HostColumn, table_from_numpy)
+    from spark_rapids_jni_tpu_torch.utils.errors import RankGroupLostError
+    name, sock, proc = srv["name"], srv["sock"], srv["proc"]
+    world, devices = srv["world"], srv["devices"]
+    rec = {k: srv[k] for k in ("world", "backend", "devices", "start_s")}
+    c = BridgeClient(sock, device="cpu")
+    pids = []
+    try:
+        m = c.metrics()
+        pids = m["ranks"]["pids"]
+        check(m["ranks"]["world"] == world and m["ranks"]["live"]
+              and m["device"] == devices[0],
+              f"{name}: the group formed, rank 0 on {devices[0]}")
+        plan = q5_engine_plan(root, *Q5_DATES)
+
+        def q5(what):
+            (h,) = c.execute_plan(plan)
+            got = c.export_table(h)
+            c.release(h)
+            check(q5_matches(engine_result(_named(got, Q5_NAMES)), want),
+                  f"{name}: q5 over PLAN_EXECUTE ({what}) == the "
+                  "one-process execute")
+
+        q5("before the drill")
+        check_rank_devices(c.metrics()["ranks"]["last_plan"], devices, name)
+        scan = pe.Aggregate(pe.Scan(root / "store_sales.parquet",
+                                    chunk_bytes=DRILL_SCAN_CHUNK),
+                            ["ss_store_sk"], [("ss_net_profit", "sum")],
+                            names=["s"])
+        ca = BridgeClient(sock, device="cpu")
+        errs = []
+
+        def submit():
+            try:
+                ca.execute_plan(scan)
+            except Exception as e:  # noqa: BLE001 -- checked below
+                errs.append(e)
+
+        t = threading.Thread(target=submit)
+        t.start()
+        for _ in range(5000):
+            if c.query_status(trace_id=ca.trace_id):
+                break
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        os.kill(pids[world - 1], signal.SIGKILL)
+        t.join(timeout=RANK_TIMEOUT_S + 60)
+        rec["kill_to_lost_s"] = time.perf_counter() - t0
+        ca.close()
+        check(not t.is_alive() and len(errs) == 1
+              and isinstance(errs[0], RankGroupLostError)
+              and rec["kill_to_lost_s"] <= RANK_TIMEOUT_S + 30,
+              f"{name}: SIGKILL of rank {world - 1} mid-scan gave "
+              f"RankGroupLostError in {rec['kill_to_lost_s']:.3f} s: "
+              f"{errs}")
+        c.ping()
+        ranks = c.metrics()["ranks"]
+        rec["lost"] = ranks["lost"]
+        check(not ranks["live"] and f"rank {world - 1}" in ranks["lost"],
+              f"{name}: the group is lost, naming rank {world - 1}: "
+              f"{ranks['lost']}")
+        q5("from the result cache, after the loss")
+        check(c.metrics()["last_plan"].get("served_from_cache"),
+              f"{name}: the cached q5 is served after the loss")
+        # rank 0's card still serves the small ops: a round trip on K1/K2
+        cols = stage_columns(1 << 16, 0)
+        host = table_from_numpy([HostColumn(t, s_, d, v)
+                                 for _, t, s_, d, v in cols],
+                                [x[0] for x in cols], device="cpu")
+        th = c.import_table(host)
+        (blob,) = c.convert_to_rows(th)
+        back = c.export_table(c.convert_from_rows(blob, host.dtypes()))
+        check(all(torch.equal(a.valid_mask(), b.valid_mask())
+                  and bits_equal(torch, a.data[b.valid_mask()],
+                                 b.data[b.valid_mask()])
+                  for a, b in zip(back.columns, host.columns)),
+              f"{name}: after the loss, TO_ROWS/FROM_ROWS on rank 0's card "
+              "is bit-exact")
+        t0 = time.perf_counter()
+        try:
+            c.execute_plan(pe.Aggregate(
+                pe.Scan(root / "store_sales.parquet"), ["ss_store_sk"],
+                [("ss_quantity", "sum")], names=["q"]))
+            refused = None
+        except RankGroupLostError as e:
+            refused = e
+        rec["new_plan_refused_s"] = time.perf_counter() - t0
+        check(refused is not None and rec["new_plan_refused_s"] < 5.0,
+              f"{name}: a new PLAN_EXECUTE gets ranks_lost at once")
+        c.shutdown_server()
+        check(proc.wait(timeout=120) == 0, f"{name}: the server shut down")
+        check(not any(_alive(p) for p in pids),
+              f"{name}: OP_SHUTDOWN left no rank process")
+    finally:
+        c.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    return rec
+
+
+def phase_cards(torch, root, n: int, n_str: int, seed: int,
+                gloo_q5_warm_s: float | None = None) -> dict:
+    """NCCL one rank a card on every card of the host (W of 8, 4 or 2).
+    In process: ``rank_cards`` on W ranks; q5 over 2 gloo ranks sharing
+    card 0 (unless the ranks phase gave it) and in one process, beside.
+    Then two W-card servers, started together: one runs what
+    ``bridge_ranks`` runs (q5 cold and warm, the round trip, OP_CANCEL,
+    a verification error, shutdown), the other, rank 0 on cuda:1, the
+    SIGKILL drill.  A card the host does not have is refused.  On one
+    card a line says it was not run."""
+    from concurrent.futures import ThreadPoolExecutor
+    from spark_rapids_jni_tpu_torch import device as pdevice
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import shm as shmlib
+    from spark_rapids_jni_tpu_torch.parallel import ranks as pranks
+    import shutil
+    out = {"phase": "cards", "shards": SHARDS, "rows": n,
+           "string_rows": n_str}
+    cards = torch.cuda.device_count()
+    world = cards_world(torch)
+    if not world:
+        print(f"cards: NCCL with one rank a card not run: this host has "
+              f"{cards} card", flush=True)
+        out["not_run"] = f"{cards} card"
+        return out
+    t_phase = time.perf_counter()
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink",
+                                               "-s"]):
+        got = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=60)
+        print(f"cards: {' '.join(cmd)}\n" + (got.stdout + got.stderr)
+              .rstrip(), flush=True)
+    devices = card_devices(world)
+    out.update(world=world, devices=devices, backend=CARDS_BACKEND)
+    # each part runs even when one before it failed; the phase then fails
+    # naming every part that did
+    failed = []
+
+    def part(name, fn):
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 -- re-raised below, all of them
+            import traceback
+            failed.append(f"{name}: {traceback.format_exc()[-3000:]}")
+            print(f"cards: {name} failed:\n{failed[-1]}", flush=True)
+            return None
+
+    def refused():
+        # a card the host does not have: refused in process and for a rank
+        try:
+            pdevice.resolve(f"cuda:{cards}")
+            here = ""
+        except RuntimeError as e:
+            here = str(e)
+        try:
+            pranks.spawn(rank_nccl_one, 1, CARDS_BACKEND, [f"cuda:{cards}"],
+                         60.0, args=(1 << 16, seed))
+            rank = ""
+        except RuntimeError as e:
+            rank = str(e)
+        check(f"has {cards} CUDA card" in here
+              and f"has {cards} CUDA card" in rank,
+              f"a rank asked for cuda:{cards} raises: {rank[-300:]}")
+
+    part("a card the host lacks", refused)
+
+    def in_process():
+        t0 = time.perf_counter()
+        recs = pranks.spawn(rank_cards, world, CARDS_BACKEND, devices,
+                            RANKS_TIMEOUT, args=(str(root), n, n_str, seed))
+        out["ranks_s"] = time.perf_counter() - t0
+        check(len({g["engine_q5"]["plan"] for g in recs}) == 1,
+              "every rank ran rank 0's physical plan")
+        return recs
+
+    recs = out["ranks"] = part("ranks", in_process)
+
+    def peer_dies():
+        pid_dir = tempfile.mkdtemp(prefix="pids-")
+        started = pranks.launch(rank_peer_dies, world, CARDS_BACKEND,
+                                devices, RANKS_TIMEOUT, args=(pid_dir,))
+        try:
+            check(started.wait(PEER_DIES_WAIT_S),
+                  "the lost-peer probe's ranks all exited")
+            codes = started.exitcodes()
+            check(codes[world - 1] == 9 and all(
+                codes[r] == 0 for r in range(world - 1)),
+                  f"the lost-peer probe: the last rank exited 9, the "
+                  f"others 0: {codes} "
+                  f"{started.failure(range(world - 1))[-2000:]}")
+            return started.results(range(world - 1))
+        finally:
+            started.close()
+            shutil.rmtree(pid_dir, ignore_errors=True)
+
+    out["peer_dies"] = part("a peer dies in an NCCL all_to_all", peer_dies)
+    if gloo_q5_warm_s is None:
+        gloo = part("q5 over 2 gloo ranks on card 0", lambda: pranks.spawn(
+            rank_engine_q5, 2, "gloo", card_devices(1) * 2, RANKS_TIMEOUT,
+            args=(str(root),)))
+        gloo_q5_warm_s = gloo[0]["warm_s"] if gloo else float("nan")
+    plan = q5_engine_plan(root, *Q5_DATES)
+    opt = pe.optimize(plan)
+    want = engine_result(pe.execute(opt, device=DEV))
+    _, one_s = wall(torch, lambda: pe.execute(opt, device=DEV))
+    out["q5_warm_s"] = {
+        "nccl_cards": recs[0]["engine_q5"]["warm_s"] if recs
+        else float("nan"),
+        "gloo_2_on_card_0": gloo_q5_warm_s, "one_process": one_s}
+
+    sock_dir = Path(tempfile.mkdtemp(prefix="srjt-", dir=shmlib.SHM_DIR))
+    servers = {"server": ((world, CARDS_BACKEND, devices), {}),
+               # rank 0 on cuda:1: its connection threads bind that card
+               "drill": ((world, CARDS_BACKEND, devices[1:] + devices[:1]),
+                         {"name": "drill", "result_cache": 8})}
+    futs = {}
+    try:
+        with ThreadPoolExecutor(len(servers)) as ex:
+            futs = {k: ex.submit(start_ranked_server, sock_dir, *a, **kw)
+                    for k, (a, kw) in servers.items()}
+            out["server"] = part("server", lambda: ranked_server_run(
+                torch, root, futs["server"].result(), want, seed, True))
+            out["drill"] = part("drill", lambda: ranked_server_drill(
+                torch, root, futs["drill"].result(), want))
+    finally:
+        for f in futs.values():
+            if f.done() and f.exception() is None \
+                    and f.result()["proc"].poll() is None:
+                f.result()["proc"].kill()
+                f.result()["proc"].wait(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    check(not failed, f"cards: {len(failed)} part(s) failed:\n" +
+          "\n".join(failed))
+
+    cards_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    out["cards"] = cards_line
+    for rec in recs:
+        k, cl = rec["int32_key"], rec["collectives"]
+        print(f"cards: rank {rec['rank']} on {rec['device']}: INT32 shuffle "
+              f"{k['ms']:.3f} ms (grid {k['grid_bytes']} B, "
+              f"{k['cross_bytes']} B to the other cards), STRING shuffle "
+              f"{rec['string_key']['ms']:.3f} ms; NCCL all_to_all "
+              f"{cl['a2a_ms']:.3f} ms, all_reduce {cl['all_reduce_ms']:.3f} "
+              f"ms, all_gather {cl['all_gather_ms']:.3f} ms of "
+              f"{cl['bytes']} B a rank; CUDA contexts on cards "
+              f"{rec['cuda_contexts']}", flush=True)
+    q = out["q5_warm_s"]
+    print(f"cards: q5 warm {q['nccl_cards']:.4f} s over {world} NCCL ranks "
+          f"one a card, {q['gloo_2_on_card_0']:.4f} s over 2 gloo ranks on "
+          f"card 0, {q['one_process']:.4f} s in one process; PLAN_EXECUTE "
+          f"{out['server']['q5_warm_s']:.4f} s over the {world}-card "
+          f"server; SIGKILL to ranks_lost "
+          f"{out['drill']['kill_to_lost_s']:.3f} s; a peer's death to "
+          f"the survivors' error "
+          f"{max(p['death_to_error_s'] for p in out['peer_dies']):.3f} s; "
+          f"{world} x {cards_line[0]}", flush=True)
+    out["launches"] = {k: sum(g["launches"][k] for g in recs)
+                       for k in ALL_KERNELS}
+    out["launches_per_rank"] = {k: [g["launches"][k] for g in recs]
+                                for k in ALL_KERNELS}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4911,9 +5434,105 @@ def _build_all(modules) -> dict:
         return {name: f.result() for name, f in futs.items()}
 
 
+#: the phases after ``build``, in the order they run; ``--phases`` picks
+#: some (``files`` writes q5's three Parquet files whenever a phase after
+#: ``strings`` runs)
+PHASES = ("kernels", "stage", "strings", "decode", "decode_kernels", "q5",
+          "engine", "ops", "nds", "orc", "exchange", "adaptive", "bridge",
+          "nested", "ranks", "bridge_ranks", "cards")
+#: what a phase reads of another: its results (engine) or its files
+#: (bridge scans the adaptive fact, written without that phase if need be)
+PHASE_NEEDS = {"engine": ("kernels", "q5")}
+#: phases whose ``launches`` make a column of the kernels line, by key
+LAUNCH_COLUMNS = ("engine", "nds", "orc", "exchange", "adaptive", "bridge",
+                  "nested", "ranks", "bridge_ranks", "cards")
+
+
+def pick_phases(text: str | None) -> list:
+    """The phases ``--phases`` names (all without it), with what they
+    need, in run order."""
+    if not text:
+        return list(PHASES)
+    want = {p.strip() for p in text.split(",") if p.strip()}
+    bad = want - set(PHASES)
+    if bad:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {sorted(bad)}; "
+                         f"phases: {','.join(PHASES)}")
+    for p in list(want):
+        want.update(PHASE_NEEDS.get(p, ()))
+    return [p for p in PHASES if p in want]
+
+
+def kernel_rows(res: dict) -> list:
+    """The kernels line: each kernel's route, source and the TPU kernel it
+    replaces, its times from the kernels and decode_kernels phases, and
+    its launches in every phase that ran (a ``<phase>_launches`` column,
+    with ``_per_rank`` where the phase ran ranks)."""
+    pkg = "spark_rapids_jni_tpu_torch/kernels/csrc/"
+    jax_pkg = "spark_rapids_jni_tpu/ops/"
+    rows = []
+    for name, src, ref, first in (
+            ("interleave_planes", "row_wire.cu", "pallas_kernels.py:28",
+             "stage"),
+            ("deinterleave_wire", "row_wire.cu", "pallas_kernels.py:34",
+             "stage"),
+            ("plain_gather", "parquet_decode.cu", "parquet_decode.py:336",
+             "q5"),
+            ("snappy_walk", "parquet_decode.cu", "parquet_decode.py:130",
+             "q5"),
+            ("hybrid_decode", "parquet_decode.cu", "parquet_decode.py:247",
+             "q5")):
+        row = {"name": name, "route": "cuda", "source": pkg + src,
+               "replaces": jax_pkg + ref}
+        if first in res:
+            row["launches"] = res[first]["launches"][name]
+        if name in DECODE_KERNELS and "decode_kernels" in res:
+            dk = res["decode_kernels"]
+            if name == "plain_gather":
+                c = dk[name]["cases"][0]
+                row.update(
+                    max_abs_err=dk[name]["max_abs_err"], ms=c["ms"],
+                    kernel_ms=c["ms"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound_ms"], bound_by="bytes",
+                    library_ms=c["library_ms"],
+                    library_call="torch.gather(unc, 1, flat_offsets)"
+                                 ".view(torch.int32), int64 offsets built "
+                                 "outside", shape=c["shape"])
+            else:
+                c = max(dk[name]["cases"], key=lambda c: c["longest_walk"])
+                row.update(
+                    max_abs_err=dk[name]["max_abs_err"], ms=c["ms"],
+                    kernel_ms=c["kernel_ms"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound_ms"], bound_by="bytes",
+                    longest_walk=c["longest_walk"],
+                    ns_per_step=c["ns_per_step"], hop_ns=c["hop_ns"],
+                    library_ms=None,
+                    library_note="a header walk; no PyTorch call does it",
+                    case=c["case"])
+        elif name not in DECODE_KERNELS and "kernels" in res:
+            k = res["kernels"][name]
+            row.update(max_abs_err=k["max_abs_err"], ms=k["ms"],
+                       kernel_ms=k["ms"], plain_ms=k["plain_ms"],
+                       bound_ms=k["bound_ms"], bound_by="bytes",
+                       library_ms=k["library_ms"], shape=k["shape"])
+        for ph in LAUNCH_COLUMNS:
+            got = res.get(ph, {})
+            if "launches" in got and name in got["launches"]:
+                row[f"{ph}_launches"] = got["launches"][name]
+                if "launches_per_rank" in got:
+                    row[f"{ph}_launches_per_rank"] = \
+                        got["launches_per_rank"][name]
+            elif ph == "cards" and "not_run" in got:
+                row["cards_launches"] = None  # one card: not run
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", help="run only these phases, "
+                    "comma-separated (default: all): " + ",".join(PHASES))
     ap.add_argument("--rows", type=int, default=1 << 24)
     ap.add_argument("--string-rows", type=int, default=1 << 22)
     ap.add_argument("--fact-rows", type=int, default=1 << 24)
@@ -4929,6 +5548,7 @@ def main() -> int:
     ap.add_argument("--ranks-rows", type=int, default=1 << 24)
     ap.add_argument("--ranks-string-rows", type=int, default=1 << 22)
     args = ap.parse_args()
+    phases = pick_phases(args.phases)
     # 16 row groups, so q5's footer pruning has groups to skip; the
     # decode matrix is one group of at most 2^20 rows
     group_rows = max(args.fact_rows // 16, 1)
@@ -4951,6 +5571,16 @@ def main() -> int:
     port = (Table, HostColumn, table_from_numpy, convert_to_rows,
             convert_from_rows, fixed_width_layout, groupby, murmur3_hash,
             row_wire, tracing)
+    res: dict = {}
+
+    def run(name, fn, show=None):
+        """Run phase ``name`` if it was picked; emit its line."""
+        if name not in phases:
+            return None
+        res[name] = out = fn()
+        emit(out if show is None else show(out))
+        torch.cuda.empty_cache()
+        return out
 
     t0 = time.perf_counter()
     built = _build_all([("row_wire", row_wire), ("parquet_decode", pqk)])
@@ -4960,169 +5590,88 @@ def main() -> int:
                               if "registers" in ln or "smem" in ln]}
              for name, b in built.items()}})
 
-    kernels = phase_kernels(torch, row_wire, args.seed, args.rows)
-    emit({"phase": "kernels", **kernels})
+    run("kernels", lambda: phase_kernels(torch, row_wire, args.seed,
+                                         args.rows),
+        lambda k: {"phase": "kernels", **k})
 
-    cols = stage_columns(args.rows, args.seed)
-    stage = phase_stage(torch, port, cols, args.seed)
-    del cols
-    torch.cuda.empty_cache()
-    emit(stage)
+    def stage():
+        cols = stage_columns(args.rows, args.seed)
+        return phase_stage(torch, port, cols, args.seed)
 
-    emit(phase_strings(torch, port, args.string_rows, args.seed))
-    torch.cuda.empty_cache()
+    run("stage", stage)
+    run("strings", lambda: phase_strings(torch, port, args.string_rows,
+                                         args.seed))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
-        t1 = time.perf_counter()
-        fact = fact_columns(args.fact_rows, args.seed)
-        dates, stores = dim_columns()
-        write_parquet(root / "store_sales.parquet", fact, group_rows,
-                      "snappy")
-        write_parquet(root / "date_dim.parquet", dates, 1 << 20, "snappy")
-        write_parquet(root / "store.parquet", stores, 1 << 20, "snappy")
-        emit({"phase": "files", "seconds": time.perf_counter() - t1,
-              "fact_rows": args.fact_rows, "group_rows": group_rows,
-              "bytes": {p.name: p.stat().st_size
-                        for p in sorted(root.iterdir())}})
+        fact = dates = stores = None
+        if set(phases) - {"kernels", "stage", "strings"}:
+            t1 = time.perf_counter()
+            fact = fact_columns(args.fact_rows, args.seed)
+            dates, stores = dim_columns()
+            write_parquet(root / "store_sales.parquet", fact, group_rows,
+                          "snappy")
+            write_parquet(root / "date_dim.parquet", dates, 1 << 20,
+                          "snappy")
+            write_parquet(root / "store.parquet", stores, 1 << 20, "snappy")
+            emit({"phase": "files", "seconds": time.perf_counter() - t1,
+                  "fact_rows": args.fact_rows, "group_rows": group_rows,
+                  "bytes": {p.name: p.stat().st_size
+                            for p in sorted(root.iterdir())}})
 
-        decode = phase_decode(torch, root, fact, args.seed, matrix_rows)
-        emit(decode)
-        torch.cuda.empty_cache()
+        run("decode", lambda: phase_decode(torch, root, fact, args.seed,
+                                           matrix_rows))
+        run("decode_kernels", lambda: phase_decode_kernels(
+            torch, root, root / "store_sales.parquet", args.seed,
+            matrix_rows), lambda dk: {"phase": "decode_kernels", **dk})
+        run("q5", lambda: phase_q5(torch, root, fact, dates, stores, pqk,
+                                   tracing))
 
-        dk = phase_decode_kernels(torch, root, root / "store_sales.parquet",
-                                  args.seed, matrix_rows)
-        emit({"phase": "decode_kernels", **dk})
-        torch.cuda.empty_cache()
+        def engine():
+            k1 = res["kernels"]["interleave_planes"]
+            copy_gbps = k1["bound_ms"] * HBM_BYTES_PER_S / \
+                k1["library_ms"] / 1e9
+            return phase_engine(torch, root, fact, dates, stores, pqk,
+                                tracing, res["q5"], copy_gbps)
 
-        q5 = phase_q5(torch, root, fact, dates, stores, pqk, tracing)
-        emit(q5)
-        torch.cuda.empty_cache()
-
-        k1 = kernels["interleave_planes"]
-        copy_gbps = k1["bound_ms"] * HBM_BYTES_PER_S / k1["library_ms"] / 1e9
-        engine = phase_engine(torch, root, fact, dates, stores, pqk, tracing,
-                              q5, copy_gbps)
-        emit(engine)
+        run("engine", engine)
         del fact
-        torch.cuda.empty_cache()
-
-        ops = phase_ops(torch, tracing, args.ops_rows, args.ops_string_rows,
-                        args.seed)
-        emit({k: v for k, v in ops.items() if k != "ops"})
-        torch.cuda.empty_cache()
-
-        nds = phase_nds(torch, root, pqk, tracing, args.nds_rows, args.seed)
-        emit(nds)
-        torch.cuda.empty_cache()
-
-        orc = phase_orc(torch, root, tracing, args.orc_rows, args.seed)
-        emit(orc)
-        torch.cuda.empty_cache()
-
-        exchange = phase_exchange(torch, root, tracing, args.exchange_rows,
-                                  args.exchange_string_rows, args.seed)
-        emit(exchange)
-        torch.cuda.empty_cache()
-
-        adaptive = phase_adaptive(torch, root, tracing, args.adaptive_rows,
-                                  args.seed)
-        emit(adaptive)
-        torch.cuda.empty_cache()
-
-        bridge = phase_bridge(torch, root, tracing, args.bridge_rows,
-                              args.seed)
-        emit(bridge)
-        torch.cuda.empty_cache()
-
-        nested = phase_nested(torch, root, tracing, args.nested_rows,
-                              args.seed)
-        emit(nested)
-        torch.cuda.empty_cache()
-
-        ranks = phase_ranks(torch, root, args.ranks_rows,
-                            args.ranks_string_rows, args.seed)
-        emit(ranks)
-        torch.cuda.empty_cache()
-
-        bridge_ranks = phase_bridge_ranks(
-            torch, root, args.seed, bridge["q5"]["warm_s"],
-            ranks["gloo"][0]["engine_q5"]["warm_s"])
-        emit(bridge_ranks)
+        run("ops", lambda: phase_ops(torch, tracing, args.ops_rows,
+                                     args.ops_string_rows, args.seed),
+            lambda o: {k: v for k, v in o.items() if k != "ops"})
+        run("nds", lambda: phase_nds(torch, root, pqk, tracing,
+                                     args.nds_rows, args.seed))
+        run("orc", lambda: phase_orc(torch, root, tracing, args.orc_rows,
+                                     args.seed))
+        run("exchange", lambda: phase_exchange(
+            torch, root, tracing, args.exchange_rows,
+            args.exchange_string_rows, args.seed))
+        run("adaptive", lambda: phase_adaptive(
+            torch, root, tracing, args.adaptive_rows, args.seed))
+        if "bridge" in phases and "adaptive" not in phases:
+            fact_a, _ = adaptive_columns(args.adaptive_rows, args.seed)
+            write_parquet(root / "aqe_fact.parquet", fact_a,
+                          max(args.adaptive_rows // 16, 1), "snappy")
+            del fact_a
+        run("bridge", lambda: phase_bridge(torch, root, tracing,
+                                           args.bridge_rows, args.seed))
+        run("nested", lambda: phase_nested(torch, root, tracing,
+                                           args.nested_rows, args.seed))
+        run("ranks", lambda: phase_ranks(torch, root, args.ranks_rows,
+                                         args.ranks_string_rows, args.seed))
+        nan = float("nan")
+        run("bridge_ranks", lambda: phase_bridge_ranks(
+            torch, root, args.seed,
+            res["bridge"]["q5"]["warm_s"] if "bridge" in res else nan,
+            res["ranks"]["gloo"][0]["engine_q5"]["warm_s"]
+            if "ranks" in res else nan))
+        run("cards", lambda: phase_cards(
+            torch, root, args.ranks_rows, args.ranks_string_rows,
+            args.seed, res["ranks"]["gloo"][0]["engine_q5"]["warm_s"]
+            if "ranks" in res else None))
 
     print(card_line(), flush=True)
-    pkg = "spark_rapids_jni_tpu_torch/kernels/csrc/"
-    jax_pkg = "spark_rapids_jni_tpu/ops/"
-    rows = [
-        {"name": name, "route": "cuda", "source": pkg + "row_wire.cu",
-         "replaces": jax_pkg + ref, "launches": stage["launches"][name],
-         "orc_launches": orc["launches"][name],
-         "exchange_launches": exchange["launches"][name],
-         "adaptive_launches": adaptive["launches"][name],
-         "bridge_launches": bridge["launches"][name],
-         "nested_launches": nested["launches"][name],
-         "ranks_launches": ranks["launches"][name],
-         "bridge_ranks_launches": bridge_ranks["launches"][name],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": "bytes",
-         "library_ms": k["library_ms"], "shape": k["shape"]}
-        for (name, k), ref in zip(kernels.items(), ("pallas_kernels.py:28",
-                                                    "pallas_kernels.py:34"))]
-    contract = dk["plain_gather"]["cases"][0]
-    rows.append({
-        "name": "plain_gather", "route": "cuda",
-        "source": pkg + "parquet_decode.cu",
-        "replaces": jax_pkg + "parquet_decode.py:336",
-        "launches": q5["launches"]["plain_gather"],
-        "engine_launches": engine["launches"]["plain_gather"],
-        "nds_launches": nds["launches"]["plain_gather"],
-        "orc_launches": orc["launches"]["plain_gather"],
-        "exchange_launches": exchange["launches"]["plain_gather"],
-        "adaptive_launches": adaptive["launches"]["plain_gather"],
-        "bridge_launches": bridge["launches"]["plain_gather"],
-        "nested_launches": nested["launches"]["plain_gather"],
-        "ranks_launches": ranks["launches"]["plain_gather"],
-        "ranks_launches_per_rank":
-            ranks["launches_per_rank"]["plain_gather"],
-        "bridge_ranks_launches": bridge_ranks["launches"]["plain_gather"],
-        "bridge_ranks_launches_per_rank":
-            bridge_ranks["launches_per_rank"]["plain_gather"],
-        "max_abs_err": dk["plain_gather"]["max_abs_err"],
-        "ms": contract["ms"], "kernel_ms": contract["ms"],
-        "plain_ms": contract["plain_ms"], "bound_ms": contract["bound_ms"],
-        "bound_by": "bytes", "library_ms": contract["library_ms"],
-        "library_call": "torch.gather(unc, 1, flat_offsets)"
-                        ".view(torch.int32), int64 offsets built outside",
-        "shape": contract["shape"]})
-    for name, ref in (("snappy_walk", "parquet_decode.py:130"),
-                      ("hybrid_decode", "parquet_decode.py:247")):
-        case = max(dk[name]["cases"], key=lambda c: c["longest_walk"])
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": pkg + "parquet_decode.cu", "replaces": jax_pkg + ref,
-            "launches": q5["launches"][name],
-            "engine_launches": engine["launches"][name],
-            "nds_launches": nds["launches"][name],
-            "orc_launches": orc["launches"][name],
-            "exchange_launches": exchange["launches"][name],
-            "adaptive_launches": adaptive["launches"][name],
-            "bridge_launches": bridge["launches"][name],
-            "nested_launches": nested["launches"][name],
-            "ranks_launches": ranks["launches"][name],
-            "ranks_launches_per_rank": ranks["launches_per_rank"][name],
-            "bridge_ranks_launches": bridge_ranks["launches"][name],
-            "bridge_ranks_launches_per_rank":
-                bridge_ranks["launches_per_rank"][name],
-            "max_abs_err": dk[name]["max_abs_err"], "ms": case["ms"],
-            "kernel_ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"], "bound_by": "bytes",
-            "longest_walk": case["longest_walk"],
-            "ns_per_step": case["ns_per_step"], "hop_ns": case["hop_ns"],
-            "library_ms": None,
-            "library_note": "a header walk; no PyTorch call does it",
-            "case": case["case"]})
-    emit({"kernels": rows})
+    emit({"kernels": kernel_rows(res)})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -39,13 +39,29 @@ process:
   session's budget is the group's least.
 - **A lost group stays lost.**  A rank whose process has ended, or a
   collective that failed (a peer gone, or the group's timeout passed,
-  after which gloo's pairs are closed), loses the group: rank 0 stops the
-  other ranks, that plan and every later ``PLAN_EXECUTE`` get
-  ``RankGroupLostError`` (kind ``ranks_lost``) at once, and the small ops
-  keep serving.  Errors every rank sees together (rank 0's planning or
+  after which gloo's pairs are closed), loses the group: rank 0 aborts
+  the group's NCCL communicators, stops the other ranks, that plan and
+  every later ``PLAN_EXECUTE`` get ``RankGroupLostError`` (kind
+  ``ranks_lost``) at once, and the small ops and the result cache keep
+  serving.  Errors every rank sees together (rank 0's planning or
   verification error, a cancel, a deadline) leave the group serving.
 - **Shared files.**  Only rank 0 writes the profile store; the other ranks
   name their post-mortem bundles with their rank.
+
+How rank 0 learns that a rank died, and why it survives it: a watcher
+thread on rank 0 looks at the other ranks' exit codes every ``WATCH_S``
+seconds, plan or no plan, and loses the group the moment one has ended.
+Under gloo a collective waiting on the dead rank raises at once anyway
+(its connections close).  Under NCCL it would not: a collective's kernel
+waits on the card for its peer, and rank 0 waits in a host sync behind
+it until the group's timeout.  The watcher's abort (``ranks.abort``) ends
+that kernel, and the plan's next collective raises; a plan that returns
+after the group was lost is refused all the same, since its rows came
+through an aborted communicator.  The NCCL group is made so that its
+watchdog aborts on an error or a timeout instead of ending the process
+(``ranks.init_ranks``): nothing that happens to the group ends rank 0,
+which is the server.  A lost group is never re-formed, nor swapped for
+gloo.
 """
 
 from __future__ import annotations
@@ -60,6 +76,7 @@ import time
 
 import torch.distributed as dist
 
+from .. import device as _device
 from ..parallel import ranks as _ranks
 from ..utils.errors import RankGroupLostError
 
@@ -72,6 +89,8 @@ RANK_TIMEOUT_S = 120.0
 STOP_WAIT_S = 30.0
 #: seconds a failed collective waits for a dead rank's exit code
 DEATH_WAIT_S = 1.0
+#: seconds between the watcher's looks at the ranks' exit codes
+WATCH_S = 0.05
 
 
 def control(ranks: _ranks.Ranks) -> _ranks.Ranks:
@@ -97,9 +116,9 @@ class _OutOfStep(Exception):
     """A collective of the plan, or the report after it, failed."""
 
 
-def _launches() -> dict:
+def _counters(prefix: str) -> dict:
     from ..utils import tracing
-    return tracing.counters_snapshot("kernel.")
+    return tracing.counters_snapshot(prefix)
 
 
 def run_plan(ranks, ctrl, cache, plan, hit: bool, cancel, session=None,
@@ -110,7 +129,8 @@ def run_plan(ranks, ctrl, cache, plan, hit: bool, cancel, session=None,
     report.  Raises ``_OutOfStep`` when the group fell out of step."""
     from ..engine import new_stats
     stats = new_stats() if stats is None else stats
-    before = _launches()
+    before = _counters("kernel.")
+    cards_before = _counters("kernel_device.")
     out = err = None
     try:
         out = cache.get(plan, ranks=ranks, hit=hit).execute(
@@ -120,11 +140,19 @@ def run_plan(ranks, ctrl, cache, plan, hit: bool, cancel, session=None,
         if _ranks.is_group_failure(e):
             raise _OutOfStep(f"rank {ranks.rank}: {e}") from e
         err = e
-    after = _launches()
-    report = {"rank": ranks.rank, "ok": err is None,
+    after = _counters("kernel.")
+    cards_after = _counters("kernel_device.")
+    report = {"rank": ranks.rank, "device": str(ranks.device),
+              "ok": err is None,
               "error": "" if err is None else type(err).__name__,
               "launches": {k[len("kernel."):]: v - before.get(k, 0)
                            for k, v in after.items()},
+              # "<kernel>.<device>": the cards this plan's kernels ran on
+              "launch_devices": {
+                  k[len("kernel_device."):]: v - cards_before.get(k, 0)
+                  for k, v in cards_after.items()
+                  if v > cards_before.get(k, 0)},
+              "cards_with_tensors": _device.cards_with_tensors(),
               "row_groups_read": stats.get("row_groups_read", 0),
               "exchanges": stats.get("exchanges", 0),
               "plan_cache": cache.stats()}
@@ -153,6 +181,11 @@ class RankGroup:
         self._cv = threading.Condition()
         self._tickets = 0
         self._serving = 0
+        self._lost_lock = threading.Lock()
+        self._stopping = threading.Event()
+        self._watcher = threading.Thread(target=self._watch, daemon=True,
+                                         name="rank-watcher")
+        self._watcher.start()
 
     @contextlib.contextmanager
     def turn(self):
@@ -182,12 +215,23 @@ class RankGroup:
                 return ", ".join(dead)
             time.sleep(0.01)
 
+    def _watch(self) -> None:
+        """Lose the group as soon as a rank's process has ended, until the
+        group is lost or shut down."""
+        while not self._stopping.wait(WATCH_S) and not self.lost:
+            dead = self._dead()
+            if dead and not self._stopping.is_set():
+                self._lose(dead)
+
     def _lose(self, why: str) -> RankGroupLostError:
-        """Mark the group lost (naming a rank that died, if one did), stop
-        what is left of it, and return the error every later plan gets."""
-        if not self.lost:
-            self.lost = self._dead(DEATH_WAIT_S) or why
-            self.launched.close()
+        """Mark the group lost (naming a rank that died, if one did), abort
+        its NCCL communicators, stop what is left of it, and return the
+        error every later plan gets."""
+        with self._lost_lock:
+            if not self.lost:
+                self.lost = self._dead(DEATH_WAIT_S) or why
+                _ranks.abort(self.ranks)
+                self.launched.close()
         return RankGroupLostError(
             f"the server's group of {self.ranks.world} ranks is lost: "
             f"{self.lost}")
@@ -216,6 +260,8 @@ class RankGroup:
                                                cancel, session, stats)
             except _OutOfStep as e:
                 raise self._lose(str(e)) from e
+            if self.lost:  # the watcher lost the group while it ran
+                raise self._lose(self.lost)
         if err is not None:
             raise err
         return out
@@ -234,8 +280,12 @@ class RankGroup:
 
     def shutdown(self) -> None:
         """Send the stop record (when the group is live), wait for the
-        other ranks to exit, reap them, and leave the group."""
+        other ranks to exit, reap them, and leave the group.  The watcher
+        ends first: a thread still running when the interpreter exits can
+        abort it."""
         with self.turn():
+            self._stopping.set()
+            self._watcher.join(timeout=STOP_WAIT_S)
             if not (self.lost or self._dead()):
                 try:
                     _ranks.broadcast_object({"op": "stop"}, self.ctrl)

@@ -17,9 +17,11 @@ document; an unknown handle is a ``KeyError`` reply, never a crash.  An op
 that fails on the card comes back as that error: nothing retries it on the
 CPU.
 
-Threads and streams: one thread per connection.  Every thread uses the
-device's current (default) CUDA stream, so tensors crossing between
-connections through the handle table need no stream bookkeeping.
+Threads and streams: one thread per connection.  Each connection thread
+binds the server's card before it serves (``device.bind``: a new thread
+starts on card 0, and a rank's card may be another), and every thread
+uses that device's current (default) CUDA stream, so tensors crossing
+between connections through the handle table need no stream bookkeeping.
 
 Run: ``python -m spark_rapids_jni_tpu_torch.bridge.server --socket S
 [--device cpu] [--set field=value ...]`` (``--device`` defaults to
@@ -617,6 +619,7 @@ class BridgeServer:
                     shmlib.unlink(name)
 
     def _serve_client(self, conn: socket.socket) -> None:
+        _device.bind(self.device)
         with self._conns_lock:
             self._conns.add(conn)
         try:

@@ -1528,7 +1528,8 @@ class ParquetChunkedReader:
         if depth <= 0:
             yield from gen
         else:
-            yield from self._tracked(_prefetched(gen, depth, self.cancel))
+            yield from self._tracked(_prefetched(gen, depth, self.cancel,
+                                                 self.device))
 
     def iter_staged(self, prefetch: int | None = None):
         """Iterate ``(padded Table, n_rows)`` chunks, double-buffered: with
@@ -1540,14 +1541,15 @@ class ParquetChunkedReader:
         if depth <= 0:
             yield from gen
         else:
-            yield from self._tracked(_prefetched(gen, depth, self.cancel))
+            yield from self._tracked(_prefetched(gen, depth, self.cancel,
+                                                 self.device))
 
     def __iter__(self):
         if self.prefetch <= 0:
             yield from self._chunks()
             return
         yield from self._tracked(_prefetched(self._chunks(), self.prefetch,
-                                             self.cancel))
+                                             self.cancel, self.device))
 
     def _tracked(self, pf):
         """Register a prefetch generator for ``close()`` while it runs."""
@@ -1561,11 +1563,13 @@ class ParquetChunkedReader:
                 pass  # close() already reaped it
 
 
-def _prefetched(gen, depth: int, cancel=None):
+def _prefetched(gen, depth: int, cancel, device):
     """A worker thread produces items i+1..i+depth while the caller consumes
     item i: it overlaps the host half (page walk or decode, packing, the
     transfer's enqueue) with the consumer's device work.  The queue bound
-    keeps at most ``depth`` items of extra memory in flight."""
+    keeps at most ``depth`` items of extra memory in flight.  The worker
+    binds ``device`` (the reader's) before it produces: its pinned buffers
+    and transfers then belong to the reader's card, not to card 0."""
     import queue
     import threading
 
@@ -1606,6 +1610,7 @@ def _prefetched(gen, depth: int, cancel=None):
     qm = metrics.current()
 
     def producer():
+        _device.bind(device)
         with metrics.bind(qm):
             produce()
 

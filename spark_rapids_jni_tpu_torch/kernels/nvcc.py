@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,7 +95,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
 
 def launch(lib_name: str, signatures: dict, fn_name: str, device, *args):
     """Call ``fn_name`` of library ``lib_name`` on ``device``'s current
-    stream (passed last); raises if the launch reports a CUDA error."""
+    stream (passed last); raises if the launch reports a CUDA error.  Each
+    launch adds one to ``kernel_device.<fn_name>.<device>`` of
+    ``utils.tracing``: the card its tensors lie on."""
     fn = getattr(load(lib_name, signatures), fn_name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -101,3 +105,4 @@ def launch(lib_name: str, signatures: dict, fn_name: str, device, *args):
     if err != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA "
                            f"error {err}")
+    tracing.count(f"kernel_device.{fn_name}.{device}")

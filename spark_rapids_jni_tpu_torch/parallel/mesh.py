@@ -14,8 +14,11 @@ axis (parallel/shuffle.py), never as a loop of launches; rows cross ranks
 only in the collectives of ``ranks``.
 
 A 2-D ``dcn x shard`` mesh (``make_multislice_mesh``) shards rows over both
-axes, slice-major, as ``P((dcn, shard))`` does in JAX; it stays in one
-process.
+axes, slice-major, as ``P((dcn, shard))`` does in JAX.  Over a group its
+grid is laid slice-major over the ranks as the 1-D mesh's shards are: rank
+r of W holds the contiguous block of ``n_slices * chips_per_slice / W``
+shards, so a slice may span ranks and a rank may hold parts of two
+slices.
 """
 
 from __future__ import annotations
@@ -96,12 +99,18 @@ def make_mesh(n_shards: int | None = None, axis: str = ROW_AXIS,
 def make_multislice_mesh(n_slices: int, chips_per_slice: int,
                          dcn_axis: str = DCN_AXIS,
                          ici_axis: str = ROW_AXIS,
-                         device=_device.DEFAULT) -> Mesh:
+                         device=_device.DEFAULT,
+                         ranks: _ranks.Ranks | None = None) -> Mesh:
     """(n_slices, chips_per_slice) mesh: the multi-slice layout.  Row data
     shards over BOTH axes (pass ``axis=(dcn_axis, ici_axis)`` to the
-    distributed entry points), slice-major."""
-    return Mesh((int(n_slices), int(chips_per_slice)), (dcn_axis, ici_axis),
-                _device.resolve(device), None)
+    distributed entry points), slice-major.  With ``ranks`` the grid is
+    spread over the group (this rank's block of it on ``device``); the
+    group's world must divide the grid."""
+    sizes = (int(n_slices), int(chips_per_slice))
+    if ranks is not None and (sizes[0] * sizes[1]) % ranks.world:
+        raise ValueError(f"a {sizes[0]} x {sizes[1]} mesh does not split "
+                         f"over {ranks.world} ranks")
+    return Mesh(sizes, (dcn_axis, ici_axis), _device.resolve(device), ranks)
 
 
 def axis_size(mesh: Mesh, axis) -> int:

@@ -10,8 +10,18 @@ together in rank order are the one-process table.
 - ``init_ranks`` joins a process group.  The backend is the caller's:
   ``"nccl"`` (one rank a card) or ``"gloo"`` (host-staged; it also takes
   CPU tensors, and several ranks may share a card).  NCCL is refused,
-  before it can hang, on a CPU device or for two ranks of one device; the
-  library never swaps one backend for the other.
+  before it can hang, on a CPU device or for two ranks of one device, and
+  a card the host does not have is refused for either; the library never
+  swaps one backend for the other.  The rank's card is bound on the
+  joining thread; any other thread that works for the rank binds it too
+  (``device.bind``).
+- A collective that fails raises in the process (``is_group_failure``):
+  an NCCL group is made with PyTorch's NCCL error handling at
+  ``CleanUpOnly``, so its watchdog aborts the communicator on an error or
+  a timeout and never ends the process, which may be a server that keeps
+  serving without the group.  ``abort`` ends the group's NCCL work from
+  any thread: a kernel that waits on a peer that is gone returns, and
+  every later collective raises.
 - ``spawn`` runs a function on ``world`` fresh processes over a
   ``FileStore`` (no TCP port) and returns each rank's result, raising when
   any rank fails or the whole run outlasts its timeout.  ``launch`` starts
@@ -48,6 +58,10 @@ import torch.distributed as dist
 from .. import device as _device
 
 BACKENDS = ("nccl", "gloo")
+#: PyTorch's ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` mode that aborts a failed
+#: group's communicators and leaves the process running (its default, 3,
+#: ends the process)
+NCCL_CLEAN_UP_ONLY = "2"
 
 
 @dataclass(frozen=True, eq=False)
@@ -96,13 +110,13 @@ def init_ranks(backend: str, rank: int, world: int, init_method: str,
                          f"{backend!r}")
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
-    dev = _device.resolve(device)
+    dev = _device.bind(device)
     if backend == "nccl" and dev.type != "cuda":
         check_nccl_devices(dev, [])
     td = datetime.timedelta(seconds=float(timeout))
     store = _store(init_method, world)
     if backend == "nccl":
-        torch.cuda.set_device(dev)
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = NCCL_CLEAN_UP_ONLY
         props = torch.cuda.get_device_properties(dev)
         me = str(getattr(props, "uuid", None) or
                  getattr(props, "pci_bus_id", None) or dev.index)
@@ -124,6 +138,15 @@ def close_ranks() -> None:
     """Leave the group this process joined."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def abort(ranks: Ranks | None) -> None:
+    """Abort the NCCL communicators of ``ranks``' group, from any thread.
+    A gloo group needs nothing: its waits raise once a peer's process has
+    ended."""
+    if ranks is not None and ranks.backend == "nccl" and \
+            dist.is_initialized():
+        ranks.group.abort()
 
 
 def active(ranks: Ranks | None) -> bool:
@@ -177,7 +200,7 @@ def host_min(value: int, ranks: Ranks) -> int:
 #: group's timeout passed (after which a gloo group is unusable)
 _GROUP_FAILURES = ("Connection closed by peer", "Connection reset by peer",
                    "pair closure", "Timed out waiting", "gloo/transport",
-                   "NCCL error")
+                   "NCCL error", "communicator was aborted")
 
 
 def is_group_failure(e: BaseException) -> bool:
@@ -360,10 +383,11 @@ class Launched:
         """Each of ``ranks_``'s exit code and traceback, a line a rank."""
         return _failure(self.work, ranks_, self.procs)
 
-    def results(self) -> list:
-        """What each started rank's function returned, in rank order."""
+    def results(self, ranks_=None) -> list:
+        """What each started rank's function returned (or each of
+        ``ranks_``'s), in rank order."""
         out = []
-        for r in sorted(self.procs):
+        for r in sorted(self.procs if ranks_ is None else ranks_):
             with open(os.path.join(self.work, f"result-{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
         return out

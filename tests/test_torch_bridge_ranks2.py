@@ -17,18 +17,34 @@ their caller leaves ``distribute`` unset and it is on.  Set through
   within rel 1e-9).
 
 Then a server of 2 gloo ranks (``--ranks 2 --backend gloo --devices
-cpu,cpu --set distribute=true --set shards=8``) runs the fuzzer's plans 6
-and 9 (``gen_plan`` rng [7, i]: a broadcast and a hash exchange, and a hash
-exchange) against the JAX engine with ``distribute=True`` on its 8 virtual
-devices, exactly (the fuzz warehouse's floats are quarter-valued, so every
-sum is exact in any order).  Both servers start in the background while
-the JAX side runs.
+cpu,cpu --set distribute=true --set shards=8 --set result_cache=8``) runs
+the fuzzer's plans 6 and 9 (``gen_plan`` rng [7, i]: a broadcast and a
+hash exchange, and a hash exchange) against the JAX engine with
+``distribute=True`` on its 8 virtual devices, exactly (the fuzz
+warehouse's floats are quarter-valued, so every sum is exact in any
+order).  Both servers start in the background while the JAX side runs.
+
+The lost-group policy with a plan running, last, on the same server:
+SIGKILL of rank 1 in the middle of a scan of hundreds of chunks gives the
+client ``RankGroupLostError`` within seconds; rank 0 then answers PING,
+serves a result its cache holds, refuses a new plan at once, and shuts
+down leaving no rank process.  Without a server: rank 0's watcher loses
+the group (and aborts it) as soon as a rank's process ends, with no plan
+running; connection threads and the Parquet prefetch thread bind their
+card (``device.bind``: CUDA's current device belongs to each host thread),
+and a card the host does not have is refused, checked with ``torch.cuda``
+stubbed, since this host has none.
 """
 
 import os
+import signal
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
 import pytest
 import torch
 
@@ -41,11 +57,17 @@ from test_engine_e2e import q5_plan, warehouse  # noqa: F401
 from test_torch_engine_dist import assert_rows_close, flags, rows
 from test_torch_engine_fuzz import frame
 
+from spark_rapids_jni_tpu_torch import device as pdevice
 from spark_rapids_jni_tpu_torch import engine as pe
-from spark_rapids_jni_tpu_torch.bridge import BridgeClient, spawn_server
+from spark_rapids_jni_tpu_torch.bridge import BridgeClient, ranked, \
+    spawn_server
+from spark_rapids_jni_tpu_torch.bridge.server import BridgeServer
 from spark_rapids_jni_tpu_torch.columnar import Table
 from spark_rapids_jni_tpu_torch.engine.explain import explain_analyze
 from spark_rapids_jni_tpu_torch.engine.plan import Exchange, topo_nodes
+from spark_rapids_jni_tpu_torch.io import parquet as pparquet
+from spark_rapids_jni_tpu_torch.parallel import ranks as pranks
+from spark_rapids_jni_tpu_torch.utils import errors
 from spark_rapids_jni_tpu_torch.utils.config import (Config, config,
                                                      parse_setting)
 
@@ -83,7 +105,8 @@ def servers(tmp_path_factory):
             settings=SETTINGS)),
         "ranks": (str(d / "ranks.sock"), pool.submit(
             spawn_server, str(d / "ranks.sock"), device="cpu",
-            settings=SETTINGS, ranks=2, backend="gloo",
+            settings={**SETTINGS, "result_cache": 8}, ranks=2,
+            backend="gloo",
             devices=["cpu", "cpu"]))}
     yield futs
     pool.shutdown()
@@ -179,3 +202,167 @@ def test_fuzz_plan_over_ranks_matches_jax(servers, catalog, case):
     assert fuzz._frames_match(got, want, exact=True) is None
     assert [r["ok"] for r in reports] == [True, True]
     assert reports[0]["exchanges"] == reports[1]["exchanges"] >= 1
+
+
+# -- the lost-group policy and the card each thread binds --------------------
+
+@pytest.fixture(scope="module")
+def big(tmp_path_factory):
+    """A fact of 40 row groups that a 4 KiB chunk reads in hundreds of
+    chunks (tests/test_torch_bridge_ranks.py's)."""
+    root = tmp_path_factory.mktemp("drill_files")
+    rng = np.random.default_rng(11)
+    n = 400_000
+    pq.write_table(pa.table({"k": pa.array(rng.integers(0, 50, n)),
+                             "v": pa.array(rng.integers(0, 100, n))}),
+                   root / "big.parquet", row_group_size=10_000)
+    return root / "big.parquet"
+
+
+def total(path, chunk_bytes=None, key="k"):
+    return pe.Aggregate(pe.Scan(path, chunk_bytes=chunk_bytes), (key,),
+                        (("v", "sum"),), ("s",))
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def test_rank_killed_mid_plan_loses_the_group(servers, big):
+    c = client(servers, "ranks")
+    cached = total(big, key="v")
+    (h,) = c.execute_plan(cached)  # now in rank 0's result cache
+    c.release(h)
+    pids = c.metrics()["ranks"]["pids"]
+    c1 = BridgeClient(servers["ranks"][0], device="cpu")
+    result = []
+
+    def submit():
+        try:
+            result.append(c1.execute_plan(total(big, chunk_bytes=1 << 12)))
+        except Exception as e:  # noqa: BLE001 -- classified below
+            result.append(e)
+
+    worker = threading.Thread(target=submit, daemon=True)
+    worker.start()
+    for _ in range(500):  # mid-stream within a few polls
+        if c.query_status(trace_id=c1.trace_id):
+            break
+        time.sleep(0.01)
+    t0 = time.monotonic()
+    os.kill(pids[1], signal.SIGKILL)
+    worker.join(timeout=60)
+    seconds = time.monotonic() - t0
+    c1.close()
+    assert not worker.is_alive()
+    err = result[0]
+    assert isinstance(err, errors.RankGroupLostError), err
+    assert errors.classify(err)[0] == "ranks_lost"
+    assert seconds < 15.0
+    c.ping()
+    ranks = c.metrics()["ranks"]
+    assert not ranks["live"] and "rank 1" in ranks["lost"]
+    (h,) = c.execute_plan(cached)
+    assert c.export_table(h).num_rows == 100
+    assert c.metrics()["last_plan"].get("served_from_cache")
+    t0 = time.monotonic()
+    with pytest.raises(errors.RankGroupLostError):
+        c.execute_plan(total(big))
+    assert time.monotonic() - t0 < 5.0
+    c.shutdown_server()
+    assert servers["ranks"][1].result().wait(timeout=60) == 0
+    assert not any(_alive(p) for p in pids)
+
+
+class _Launched:
+    """A rank launcher whose rank 1 runs until the test ends it."""
+
+    def __init__(self):
+        self.codes = {1: None}
+        self.procs = {}
+        self.closed = False
+
+    def exitcodes(self):
+        return dict(self.codes)
+
+    def close(self):
+        self.closed = True
+
+
+def test_watcher_loses_the_group_when_a_rank_process_ends(monkeypatch):
+    aborted = []
+    monkeypatch.setattr(ranked._ranks, "abort", aborted.append)
+    me = pranks.Ranks(0, 2, "nccl", torch.device("cpu"), None, None)
+    launched = _Launched()
+    group = ranked.RankGroup(me, me, launched, ["cuda:0", "cuda:1"])
+    time.sleep(5 * ranked.WATCH_S)
+    assert not group.lost and not aborted and not launched.closed
+    launched.codes[1] = -9
+    for _ in range(200):
+        if group.lost:
+            break
+        time.sleep(ranked.WATCH_S)
+    assert group.lost == "rank 1 exited (-9)"
+    assert aborted == [me] and launched.closed
+    with pytest.raises(errors.RankGroupLostError, match="rank 1 exited"):
+        group.run(b"", None, "", None, None, {})
+
+
+@pytest.fixture
+def four_cards(monkeypatch):
+    """``torch.cuda`` as a host of four cards shows it; every
+    ``set_device`` is recorded with its thread."""
+    bound = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: bound.append(
+        (threading.get_ident(), torch.device(d))))
+    return bound
+
+
+def test_cards_resolve_with_their_index(four_cards, tmp_path):
+    assert pdevice.resolve("cuda") == torch.device("cuda", 0)
+    assert pdevice.resolve("cuda:3") == torch.device("cuda", 3)
+    assert pdevice.bind("cpu") == torch.device("cpu") and not four_cards
+    with pytest.raises(RuntimeError, match="has 4 CUDA card"):
+        pdevice.resolve("cuda:4")
+    with pytest.raises(RuntimeError, match="has 4 CUDA card"):
+        pranks.init_ranks("gloo", 0, 1, f"file://{tmp_path / 'store'}",
+                          device="cuda:4")
+    assert not four_cards and not torch.distributed.is_initialized()
+
+
+def test_connection_threads_bind_the_server_card(four_cards, tmp_path):
+    srv = BridgeServer(str(tmp_path / "s.sock"), "cuda:3")
+    assert srv.device == torch.device("cuda", 3)
+    ready = threading.Event()
+    main = threading.Thread(target=srv.serve_forever, args=(ready,),
+                            daemon=True)
+    main.start()
+    assert ready.wait(30)
+    clients = [BridgeClient(srv.sock_path, device="cpu") for _ in range(2)]
+    for c in clients:
+        c.ping()
+    clients[0].shutdown_server()
+    for c in clients:
+        c.close()
+    main.join(timeout=30)
+    assert not main.is_alive()
+    # one binding a connection: the two clients' (and the accept loop's
+    # own wake-up connection at shutdown, when it is served)
+    me = {threading.get_ident(), main.ident}
+    assert len(four_cards) >= 2 and not {t for t, _ in four_cards} & me
+    assert {d for _, d in four_cards} == {torch.device("cuda", 3)}
+
+
+def test_prefetch_thread_binds_the_reader_card(four_cards):
+    items = list(pparquet._prefetched(iter(range(5)), 2, None,
+                                      torch.device("cuda", 2)))
+    assert items == list(range(5))
+    ((tid, dev),) = four_cards
+    assert tid != threading.get_ident() and dev == torch.device("cuda", 2)

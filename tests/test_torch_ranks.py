@@ -19,7 +19,12 @@ the whole tables (as test_torch_distributed.py holds the outer and anti
 joins, where JAX sends its padding row); the spilled shuffle against the
 one-process port.  Then: a group of one rank gives what no
 group gives; NCCL on the CPU or for two ranks of one card raises; a rank
-that dies makes ``spawn`` raise within the timeout.
+that dies makes ``spawn`` raise within the timeout.  The (2, 4) multislice
+mesh laid over the 2 ranks (``make_multislice_mesh(..., ranks=)``): the
+groupby (sum, count) and the full join with ``axis=("dcn", "shard")`` as
+sorted rows, exactly, against JAX's ``make_multislice_mesh(2, 4)`` (the
+inputs of tests/test_parallel.py's multislice tests); a world that does
+not divide the grid is refused.
 """
 
 import time
@@ -244,6 +249,42 @@ def test_spilled_shuffle_matches_one_process(ranked, tmp_path):
             partition_ids
         dest = partition_ids(t, C.NDEV).numpy()
         assert ((dest // (C.NDEV // WORLD)) == r).all()
+
+
+@pytest.fixture(scope="module")
+def jm2():
+    return jmesh.make_multislice_mesh(2, C.NDEV // 2)
+
+
+def test_multislice_groupby_over_ranks_matches_jax(ranked, jm2):
+    gb, _, _ = C.multislice_arrays()
+    jgot = jdist.distributed_groupby(jtable(gb), jm2, ["k"],
+                                     C.MULTISLICE_AGGS, axis=C.MULTISLICE)
+    got = joined(ranked, "multislice/groupby")
+    assert got[0] == list(jgot.names)
+    assert rows_of(got) == rows_of((None, [c.to_pylist()
+                                           for c in jgot.columns]))
+
+
+def test_multislice_full_join_over_ranks_matches_jax(ranked, jm2):
+    _, la, ra = C.multislice_arrays()
+    jgot = jdist.distributed_join(jtable(la), jtable(ra), jm2, ["k"],
+                                  how="full", axis=C.MULTISLICE)
+    got = joined(ranked, "multislice/join")
+    assert got[0] == list(jgot.names)
+    assert rows_of(got) == rows_of((None, [c.to_pylist()
+                                           for c in jgot.columns]))
+
+
+def test_multislice_mesh_refuses_a_world_that_does_not_divide_it():
+    def group(world):
+        return pranks.Ranks(0, world, "gloo", torch.device("cpu"), None,
+                            None)
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        pmesh.make_multislice_mesh(2, 4, device="cpu", ranks=group(3))
+    m = pmesh.make_multislice_mesh(2, 4, device="cpu", ranks=group(4))
+    assert (m.sizes, m.world, pmesh.local_shards(m, C.MULTISLICE)) == \
+        ((2, 4), 4, 2)
 
 
 def test_one_rank_group_gives_the_one_process_answer(runs):

@@ -66,6 +66,24 @@ def join_arrays(seed, nl=301, nr=257):
                                     None)})
 
 
+def multislice_arrays():
+    """tests/test_parallel.py's multislice groupby input and join sides."""
+    rng = np.random.default_rng(71)
+    n = NDEV * 40
+    gb = {"k": (rng.integers(0, 13, n).astype(np.int64), None),
+          "v": (rng.integers(-50, 50, n).astype(np.int64), None)}
+    rng = np.random.default_rng(72)
+    nl, nr = NDEV * 12, NDEV * 9
+    left = {"k": (rng.integers(0, 40, nl).astype(np.int64), None),
+            "lv": (np.arange(nl, dtype=np.int64), None)}
+    right = {"k": (rng.integers(0, 40, nr).astype(np.int64), None),
+             "rv": (np.arange(nr, dtype=np.int64) * 7, None)}
+    return gb, left, right
+
+
+#: rows sharded over both axes of the (2, NDEV / 2) multislice mesh
+MULTISLICE = ("dcn", "shard")
+MULTISLICE_AGGS = [("v", "sum"), ("v", "count")]
 AGGS = [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max"),
         ("f", "mean"), ("f", "var"), ("f", "std"), ("v", "count_all")]
 WINDOW = [(None, "row_number"), ("v", "sum"), ("v", "max")]
@@ -182,6 +200,19 @@ def run_parallel(ranks, spill_dir):
     out["window"] = pylists(pdist.distributed_window(
         port_table(arrays, *block(500, r, w, 504), device=dev), mesh,
         ["k"], [("v", False)], WINDOW))
+
+    # the (2, 4) multislice mesh laid over the ranks
+    m2 = pmesh.make_multislice_mesh(2, NDEV // 2, device=dev, ranks=ranks)
+    assert (pmesh.local_shards(m2, MULTISLICE),
+            pmesh.shard_offset(m2, MULTISLICE)) == (NDEV // w, r * NDEV // w)
+    gb, la, ra = multislice_arrays()
+    out["multislice/groupby"] = pylists(pdist.distributed_groupby(
+        port_table(gb, *block(nrows(gb), r, w), device=dev), m2, ["k"],
+        MULTISLICE_AGGS, axis=MULTISLICE))
+    out["multislice/join"] = pylists(pdist.distributed_join(
+        port_table(la, *block(nrows(la), r, w), device=dev),
+        port_table(ra, *block(nrows(ra), r, w), device=dev), m2, ["k"],
+        how="full", axis=MULTISLICE))
 
     # the spilled shuffle: a budget of a few rows a pass forces several
     arrays = kv_arrays(4096, 40, 21)
