@@ -16,7 +16,7 @@ spread over those ranks.
         [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
         [--exchange-rows 16777216] [--exchange-string-rows 4194304]
         [--adaptive-rows 16777216] [--bridge-rows 16777216]
-        [--nested-rows 4194304] [--ranks-rows 16777216]
+        [--nested-rows 2097152] [--ranks-rows 16777216]
         [--ranks-string-rows 4194304]
 
 Phases (any failed check raises, and the script exits non-zero):
@@ -162,7 +162,7 @@ Phases (any failed check raises, and the script exits non-zero):
             running scan, a device-decode fault retried to the same answer
             and a post-mortem bundle naming its trace id.  Round-trip ms,
             shm GB/s, the plan's warm time beside in-process, launches.
-16. nested  a Spark-shaped fact of 2^22 rows in 2^20-row groups with
+16. nested  a Spark-shaped fact of 2^21 rows in 2^20-row groups with
             nested columns (INT64 key and FLOAT64 measure with nulls, a
             STRING, an optional STRUCT<id, name, price> with nulls at both
             levels, LIST<INT32> of 0-16 items with null lists and items,
@@ -176,8 +176,8 @@ Phases (any failed check raises, and the script exits non-zero):
             K3/W1/W2 counted), and one projecting the STRUCT and the LIST
             too (every group to the host route, reason "nested", the rows
             gathered on the card), both against numpy; an ORC round trip
-            (zlib, 2^20 rows with the STRUCT and the LIST) and a CSV round
-            trip (2^20 rows x 6 columns, nulls and quoted fields) onto the
+            (zlib, 2^19 rows with the STRUCT and the LIST) and a CSV round
+            trip (2^19 rows x 6 columns, nulls and quoted fields) onto the
             card.  Times of each step.
 17. ranks   the mesh over processes (parallel/ranks.py), 4 shards a rank:
             two gloo ranks sharing the card (host-staged), each shuffling
@@ -204,10 +204,18 @@ Phases (any failed check raises, and the script exits non-zero):
             TO_ROWS/FROM_ROWS round trip of 2^20 rows of the stage's
             schema (K1/K2 on rank 0) bit for bit; the gloo group also
             takes OP_CANCEL of a running scan (every rank stops), q5 again,
-            and an unknown column's structured error.  OP_SHUTDOWN must
-            leave no rank process.  With two cards or more, NCCL one rank
-            a card as the gloo group (on one card a line says it was not
-            run).  q5's warm seconds beside the bridge and ranks phases'.
+            and an unknown column's structured error.  Then the
+            concurrency drill (both groups): a scan of 64 KiB chunks over
+            one row group a rank and, after its first chunk, 4 point
+            lookups of ``store`` and q5 from 5 connections at once; every
+            answer equals the plan alone, every lookup returns before the
+            scan, each plan's report counts its own launches on its
+            rank's card; the lookups' latency alone and beside the scan
+            and the scan's time.  OP_SHUTDOWN must leave no rank process.
+            With two cards or more, NCCL one rank a card as the gloo
+            group, and a SIGKILL drill with two plans in flight (on one
+            card a line says it was not run).  q5's warm seconds beside
+            the bridge and ranks phases'.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -4065,11 +4073,11 @@ def phase_bridge(torch, root, tracing, n: int, seed: int) -> dict:
 # 16. nested: STRUCT and LIST columns through Parquet, ORC and CSV
 # ---------------------------------------------------------------------------
 
-NESTED_GROUP_ROWS = 1 << 20    # 4 row groups at the default 2^22 rows
+NESTED_GROUP_ROWS = 1 << 20    # 2 row groups at the default 2^21 rows
 NESTED_KEYS = 1_000_000        # the key's domain
 NESTED_CUT = 500_000           # both plans keep key < NESTED_CUT
 NESTED_PASS = 96 << 20         # the chunked reader's pass limit
-NESTED_SIDE_ROWS = 1 << 20     # rows of the ORC and CSV round trips
+NESTED_SIDE_ROWS = 1 << 19     # rows of the ORC and CSV round trips
 NESTED_FIELDS = ["id", "name", "price"]
 
 
@@ -4817,6 +4825,212 @@ def check_rank_devices(reports: list, devices: list, name: str) -> None:
               f"alone: {r['launch_devices']}, {r['cards_with_tensors']}")
 
 
+DRILL_POINTS = 4           # point lookups beside the drill's scan
+DRILL_ALONE_REPS = 5       # each lookup's runs with the group otherwise idle
+DRILL_REL = 1e-9           # float sums: atomic summation order
+#: the fact's row group where the concurrency drill's scan starts
+DRILL_FIRST_GROUP = 6
+
+
+def drill_dates(groups: int) -> tuple:
+    """Sale dates that lie in ``groups`` of the fact's 16 row groups from
+    ``DRILL_FIRST_GROUP`` on (its dates are sorted, about 114 days a
+    group), 3 days clear of their edges: footer pruning reads just those,
+    and a group of that many ranks reads one a rank."""
+    span = N_DAYS / 16
+    return (int(DATE_SK0 + DRILL_FIRST_GROUP * span) + 3,
+            int(DATE_SK0 + (DRILL_FIRST_GROUP + groups) * span) - 3)
+
+
+def drill_scan(root, value: str = "ss_net_profit", dates=None):
+    """The drills' scan: the fact in ``DRILL_SCAN_CHUNK`` chunks, a chunk
+    boundary (a vote of the group) every chunk; with ``dates`` (lo, hi)
+    only those sale dates, whose footers prune the other row groups."""
+    from spark_rapids_jni_tpu_torch import engine as pe
+    sales = pe.Scan(root / "store_sales.parquet",
+                    chunk_bytes=DRILL_SCAN_CHUNK)
+    if dates is not None:
+        sales = pe.Filter(sales, ("&", (">=", pe.col("ss_sold_date_sk"),
+                                        pe.lit(dates[0])),
+                                  ("<=", pe.col("ss_sold_date_sk"),
+                                   pe.lit(dates[1]))))
+    return pe.Aggregate(sales, ["ss_store_sk"], [(value, "sum")],
+                        names=["s"])
+
+
+def store_point(root, key: int):
+    """A point lookup of ``store``: the row of one store key."""
+    from spark_rapids_jni_tpu_torch import engine as pe
+    return pe.Filter(pe.Scan(root / "store.parquet"),
+                     ("==", pe.col("s_store_sk"), pe.lit(key)))
+
+
+def _sums(table) -> dict:
+    """{key: sum} of a two-column (key, sum) answer."""
+    return dict(zip(table.columns[0].to_pylist(),
+                    table.columns[1].to_pylist()))
+
+
+def _sums_close(got: dict, want: dict) -> bool:
+    return set(got) == set(want) and all(
+        abs(got[k] - w) <= DRILL_REL * abs(w) for k, w in want.items())
+
+
+def check_own_card(reports: list, devices: list, what: str,
+                   launched: bool) -> None:
+    """Each rank's report of one plan names its own device, every kernel
+    it counted ran on that card, and (``launched``) it counted K3, W1 and
+    W2 there."""
+    check(sorted(r["rank"] for r in reports) == list(range(len(devices)))
+          and all(r["device"] == devices[r["rank"]] for r in reports),
+          f"{what}: every rank reported its own device")
+    for r in reports:
+        dev = r["device"]
+        on = {k.rsplit(".", 1)[1] for k in r["launch_devices"]}
+        check(on <= {dev}, f"{what}: rank {r['rank']}'s kernels ran on "
+              f"{dev} alone: {r['launch_devices']}")
+        if launched:
+            check(on == {dev} and all(r["launches"].get(k, 0) > 0
+                                      for k in DECODE_KERNELS),
+                  f"{what}: rank {r['rank']} launched K3, W1 and W2 on "
+                  f"{dev}: {r['launch_devices']}")
+
+
+def ranked_concurrency_drill(torch, root, srv: dict, want: dict) -> dict:
+    """Concurrent plans over a ranked server's group (the turn rank 0
+    passes at chunk boundaries, bridge/ranked.py).  Alone first: each of
+    ``DRILL_POINTS`` point lookups of ``store`` (``DRILL_ALONE_REPS``
+    runs), q5 and the drill's scan (``drill_dates``: one row group a rank,
+    in ``DRILL_SCAN_CHUNK`` chunks).  Then the scan, and after its first
+    chunk the lookups from as many connections and q5 from one more, all
+    at once.  Every answer
+    equals the plan run alone (the lookups and q5 also the one-process
+    run); every lookup returns before the scan; each plan's report names
+    every rank's own card, with its launches there, and over two ranks or
+    more q5's and the scan's launches are the ones they made alone."""
+    import threading
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import BridgeClient
+    name, sock, devices = srv["name"], srv["sock"], srv["devices"]
+    # one row group a rank, so the drill's two scans fit its time on one
+    # card, and rank 0 (whose progress OP_QUERY_STATUS shows) reads one
+    scan = drill_scan(root, dates=drill_dates(srv["world"]))
+    points = [store_point(root, N_STORES // 4 + 37 * i)
+              for i in range(DRILL_POINTS)]
+    q5 = q5_engine_plan(root, *Q5_DATES)
+    rec = {"points": DRILL_POINTS}
+    c = BridgeClient(sock, device="cpu")
+
+    def once(cc, plan):
+        """(answer, seconds, end time, reports) of one PLAN_EXECUTE."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (h,) = cc.execute_plan(plan)
+        end = time.perf_counter()
+        got = cc.export_table(h)
+        cc.release(h)
+        reports = [x for x in cc.metrics()["ranks"]["recent"]
+                   if x["trace_id"] == cc.trace_id][-1]["reports"]
+        return got, end - t0, end, reports
+
+    try:
+        alone = {}
+        for i, p in enumerate(points):
+            local = pe.execute(pe.optimize(p), device=DEV)
+            runs = [once(c, p) for _ in range(DRILL_ALONE_REPS)]
+            check(all(r[0].columns[0].to_pylist()
+                      == local.columns[0].to_pylist()
+                      and r[0].columns[1].to_pylist()
+                      == local.columns[1].to_pylist()
+                      and r[0].num_rows == 1 for r in runs),
+                  f"{name}: point lookup {i} alone == the one-process run")
+            alone[i] = runs[-1]
+            rec.setdefault("point_alone_s", []).extend(r[1] for r in runs)
+        alone["q5"] = once(c, q5)
+        check(q5_matches(engine_result(_named(alone["q5"][0], Q5_NAMES)),
+                         want), f"{name}: q5 alone == the one-process run")
+        alone["scan"] = once(c, scan)
+        rec["scan_alone_s"] = alone["scan"][1]
+
+        out, errs = {}, []
+        clients = {k: BridgeClient(sock, device="cpu")
+                   for k in ["scan", "q5", *range(DRILL_POINTS)]}
+        plans = {"scan": scan, "q5": q5, **dict(enumerate(points))}
+
+        def go(k):
+            try:
+                out[k] = once(clients[k], plans[k])
+            except Exception as e:  # noqa: BLE001 -- checked below
+                errs.append((k, e))
+
+        ts = {k: threading.Thread(target=go, args=(k,)) for k in plans}
+        ts["scan"].start()
+        tid = clients["scan"].trace_id
+        for _ in range(20000):
+            st = c.query_status(trace_id=tid)
+            if (st and st[0].get("chunks_done", 0) >= 1) \
+                    or not ts["scan"].is_alive():
+                break
+            time.sleep(0.0005)
+        check(ts["scan"].is_alive(), f"{name}: the scan still ran after "
+              f"its first chunk (alone it took {rec['scan_alone_s']:.4f} "
+              f"s: {c.metrics()['ranks']['last_plan']})")
+        for k, t in ts.items():
+            if k != "scan":
+                t.start()
+        for t in ts.values():
+            t.join(timeout=600)
+        for cc in clients.values():
+            cc.close()
+        check(not errs and len(out) == len(plans),
+              f"{name}: every concurrent plan answered: {errs}")
+        for i in range(DRILL_POINTS):
+            check(out[i][0].columns[1].to_pylist()
+                  == alone[i][0].columns[1].to_pylist(),
+                  f"{name}: point lookup {i} beside the scan == alone")
+        check(q5_matches(engine_result(_named(out["q5"][0], Q5_NAMES)),
+                         want), f"{name}: q5 beside the scan == alone")
+        check(_sums_close(_sums(out["scan"][0]), _sums(alone["scan"][0])),
+              f"{name}: the scan beside the lookups == alone")
+        check(all(out[i][2] < out["scan"][2] for i in range(DRILL_POINTS)),
+              f"{name}: every point lookup returned before the scan")
+        for k in plans:
+            # q5 decodes by the device route; the chunked scan and the
+            # lookups by the host route
+            check_own_card(out[k][3], devices, f"{name}: {k}, run "
+                           "concurrently", k == "q5")
+        # a group of one rank overlaps its plans: its reports count the
+        # launches of every plan that overlapped (bridge/ranked.py)
+        for k in ("q5", "scan") if srv["world"] > 1 else ():
+            check([r["launches"] for r in out[k][3]]
+                  == [r["launches"] for r in alone[k][3]],
+                  f"{name}: {k}'s reports beside the others count its own "
+                  f"launches: {[r['launches'] for r in out[k][3]]} vs "
+                  f"{[r['launches'] for r in alone[k][3]]}")
+        ranks = c.metrics()["ranks"]
+        rec["handoffs"] = ranks.get("handoffs")
+        rec["in_flight_after"] = ranks.get("in_flight")
+        check(ranks["live"] and ranks["in_flight"] == 0,
+              f"{name}: the group serves, no plan left in flight")
+        rec["point_beside_s"] = [out[i][1] for i in range(DRILL_POINTS)]
+        rec["q5_alone_s"] = alone["q5"][1]
+        rec["q5_beside_s"] = out["q5"][1]
+        rec["scan_beside_s"] = out["scan"][1]
+        rec["launches"] = {k: [r["launches"] for r in out[k][3]]
+                           for k in ("q5", "scan")}
+    finally:
+        c.close()
+    pa = sorted(rec["point_alone_s"])
+    print(f"{name}: concurrency drill: point lookup alone p50 "
+          f"{pa[len(pa) // 2] * 1e3:.2f} ms, beside the scan "
+          f"{[round(x * 1e3, 2) for x in rec['point_beside_s']]} ms; q5 "
+          f"alone {rec['q5_alone_s']:.4f} s, beside {rec['q5_beside_s']:.4f}"
+          f" s; the scan of {DRILL_SCAN_CHUNK} B chunks alone "
+          f"{rec['scan_alone_s']:.4f} s, beside {rec['scan_beside_s']:.4f} "
+          f"s; {rec['handoffs']} handoffs; {card_line()}", flush=True)
+    return rec
+
+
 def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
                       full: bool) -> dict:
     """One ranked server (``start_ranked_server``) over the script's
@@ -4825,7 +5039,8 @@ def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
     reports; a TO_ROWS/FROM_ROWS round trip (K1/K2 on rank 0) bit-exact;
     with ``full``, OP_CANCEL of a running scan, then q5 again on the same
     group, and an unknown column's structured verification error;
-    OP_SHUTDOWN, after which no rank's process is left."""
+    ``ranked_concurrency_drill``; OP_SHUTDOWN, after which no rank's
+    process is left."""
     from spark_rapids_jni_tpu_torch import engine as pe
     from spark_rapids_jni_tpu_torch.bridge import BridgeClient
     from spark_rapids_jni_tpu_torch.columnar.interop import (
@@ -4946,6 +5161,7 @@ def ranked_server_run(torch, root, srv: dict, want: dict, seed: int,
             check(code == "unknown-column",
                   f"{name}: an unknown column's structured error")
             check(c.metrics()["ranks"]["live"], f"{name}: the group serves")
+        rec["concurrent"] = ranked_concurrency_drill(torch, root, srv, want)
         c.shutdown_server()
         check(proc.wait(timeout=120) == 0, f"{name}: the server shut down")
         check(not any(_alive(p) for p in pids),
@@ -5146,8 +5362,8 @@ def rank_peer_dies(ranks, pid_dir: str) -> dict:
 
 def ranked_server_drill(torch, root, srv: dict, want: dict) -> dict:
     """The lost-group policy on a ranked server started with
-    ``result_cache``: q5 served and cached; SIGKILL of rank W-1 while a
-    scan of 64 KiB chunks runs must give that client
+    ``result_cache``: q5 served and cached; SIGKILL of rank W-1 while two
+    scans of 64 KiB chunks are in flight must give both clients
     ``RankGroupLostError`` within ``RANK_TIMEOUT_S`` + 30 s; then rank 0
     answers PING, serves the cached q5, round-trips rows through K1/K2 on
     its card, refuses a new plan at once, and OP_SHUTDOWN leaves no rank
@@ -5183,42 +5399,51 @@ def ranked_server_drill(torch, root, srv: dict, want: dict) -> dict:
 
         q5("before the drill")
         check_rank_devices(c.metrics()["ranks"]["last_plan"], devices, name)
-        scan = pe.Aggregate(pe.Scan(root / "store_sales.parquet",
-                                    chunk_bytes=DRILL_SCAN_CHUNK),
-                            ["ss_store_sk"], [("ss_net_profit", "sum")],
-                            names=["s"])
-        ca = BridgeClient(sock, device="cpu")
-        errs = []
+        # two plans in flight, the turn passing between them, when the
+        # rank dies: both must get the group's loss
+        scans = {"a": drill_scan(root), "b": drill_scan(root, "ss_quantity")}
+        cs = {k: BridgeClient(sock, device="cpu") for k in scans}
+        errs = {}
 
-        def submit():
+        def submit(k):
             try:
-                ca.execute_plan(scan)
+                cs[k].execute_plan(scans[k])
             except Exception as e:  # noqa: BLE001 -- checked below
-                errs.append(e)
+                errs[k] = e
 
-        t = threading.Thread(target=submit)
-        t.start()
+        ts = {k: threading.Thread(target=submit, args=(k,)) for k in scans}
+        ts["a"].start()
         for _ in range(5000):
-            if c.query_status(trace_id=ca.trace_id):
+            if c.query_status(trace_id=cs["a"].trace_id):
                 break
             time.sleep(0.001)
+        ts["b"].start()
+        for _ in range(5000):
+            if c.metrics()["ranks"]["in_flight"] == 2:
+                break
+            time.sleep(0.001)
+        rec["in_flight_at_kill"] = c.metrics()["ranks"]["in_flight"]
         t0 = time.perf_counter()
         os.kill(pids[world - 1], signal.SIGKILL)
-        t.join(timeout=RANK_TIMEOUT_S + 60)
+        for t in ts.values():
+            t.join(timeout=RANK_TIMEOUT_S + 60)
         rec["kill_to_lost_s"] = time.perf_counter() - t0
-        ca.close()
-        check(not t.is_alive() and len(errs) == 1
-              and isinstance(errs[0], RankGroupLostError)
+        for cc in cs.values():
+            cc.close()
+        check(rec["in_flight_at_kill"] == 2 and not any(
+            t.is_alive() for t in ts.values()) and all(
+            isinstance(errs.get(k), RankGroupLostError) for k in scans)
               and rec["kill_to_lost_s"] <= RANK_TIMEOUT_S + 30,
-              f"{name}: SIGKILL of rank {world - 1} mid-scan gave "
-              f"RankGroupLostError in {rec['kill_to_lost_s']:.3f} s: "
-              f"{errs}")
+              f"{name}: SIGKILL of rank {world - 1} with "
+              f"{rec['in_flight_at_kill']} plans in flight gave each "
+              f"RankGroupLostError in {rec['kill_to_lost_s']:.3f} s: {errs}")
         c.ping()
         ranks = c.metrics()["ranks"]
         rec["lost"] = ranks["lost"]
-        check(not ranks["live"] and f"rank {world - 1}" in ranks["lost"],
-              f"{name}: the group is lost, naming rank {world - 1}: "
-              f"{ranks['lost']}")
+        check(not ranks["live"] and f"rank {world - 1}" in ranks["lost"]
+              and ranks["in_flight"] == 0,
+              f"{name}: the group is lost, naming rank {world - 1}, with no "
+              f"plan left in flight: {ranks['lost']}")
         q5("from the result cache, after the loss")
         check(c.metrics()["last_plan"].get("served_from_cache"),
               f"{name}: the cached q5 is served after the loss")
@@ -5544,7 +5769,7 @@ def main() -> int:
     ap.add_argument("--exchange-string-rows", type=int, default=1 << 22)
     ap.add_argument("--adaptive-rows", type=int, default=1 << 24)
     ap.add_argument("--bridge-rows", type=int, default=1 << 24)
-    ap.add_argument("--nested-rows", type=int, default=1 << 22)
+    ap.add_argument("--nested-rows", type=int, default=1 << 21)
     ap.add_argument("--ranks-rows", type=int, default=1 << 24)
     ap.add_argument("--ranks-string-rows", type=int, default=1 << 22)
     args = ap.parse_args()

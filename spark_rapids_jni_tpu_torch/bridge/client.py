@@ -42,7 +42,7 @@ def spawn_server(sock_path: str, device=_device.DEFAULT,
                  settings: dict | None = None,
                  timeout: float = 120.0, ranks: int | None = None,
                  backend: str | None = None,
-                 devices=None) -> subprocess.Popen:
+                 devices=None, env: dict | None = None) -> subprocess.Popen:
     """Start ``python -m spark_rapids_jni_tpu_torch.bridge.server`` on
     ``sock_path`` and return once it answers a ping.
 
@@ -51,9 +51,11 @@ def spawn_server(sock_path: str, device=_device.DEFAULT,
     ``ranks``, ``backend`` and ``devices`` (one a rank) spread the server
     over a group of processes (``--ranks/--backend/--devices``): its
     socket answers only once the group has formed, and the server exits
-    when a rank exits first.  Raises when the process exits first (its
-    return code in the message) or does not answer within ``timeout``
-    seconds (it is killed)."""
+    when a rank exits first.  ``env`` adds variables to the server's
+    environment (its ranks inherit them), as the JAX package's
+    ``spawn_server(env=)`` does.  Raises when the process exits first
+    (its return code in the message) or does not answer within
+    ``timeout`` seconds (it is killed)."""
     cmd = [sys.executable, "-m", "spark_rapids_jni_tpu_torch.bridge.server",
            "--socket", sock_path, "--device", str(device)]
     if ranks is not None or backend is not None or devices is not None:
@@ -61,7 +63,8 @@ def spawn_server(sock_path: str, device=_device.DEFAULT,
                 "--devices", ",".join(str(d) for d in devices or ())]
     for k, v in (settings or {}).items():
         cmd += ["--set", f"{k}={v}"]
-    proc = subprocess.Popen(cmd, cwd=str(_PKG_PARENT))
+    proc = subprocess.Popen(cmd, cwd=str(_PKG_PARENT),
+                            env={**os.environ, **(env or {})})
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if proc.poll() is not None:

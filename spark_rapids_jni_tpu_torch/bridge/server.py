@@ -394,7 +394,8 @@ class BridgeServer:
         ``SCHEDULER.admit`` (queue or shed), then execution with the
         admitted session under a registered ``CancelToken``.  With a group
         of ranks the execution is the group's (``ranked.RankGroup.run``):
-        every rank runs the plan, one plan at a time."""
+        every rank runs the plan, and the plans in flight pass the group's
+        turn at their chunk boundaries by the session's fair share."""
         (plen,) = struct.unpack_from("<I", payload)
         blob = payload[4:4 + plen]
         from ..engine import deserialize
@@ -523,7 +524,8 @@ class BridgeServer:
         name prefix in ``payload``), recent query summaries, per-shard
         exchange gauges, the profile store, the timeline, the flight
         recorder's health and the SLO burn; with a group of ranks, its
-        ``ranks`` block (``ranked.RankGroup.snapshot``)."""
+        ``ranks`` block (``ranked.RankGroup.snapshot``: the plans in
+        flight and how often the turn passed between plans among it)."""
         prefix = payload.decode("utf-8") if payload else ""
         with self._metrics_lock:
             snap = {"ops": dict(self._metrics["ops"]),

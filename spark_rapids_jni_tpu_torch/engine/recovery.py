@@ -38,8 +38,17 @@ rank's cancel and expiry flags over the host group, with no card sync,
 and every rank raises the same typed error at the same boundary.  A rank
 whose chunk loop ends first votes on (``finish``) until every rank's has
 ended, so ranks that read different numbers of chunks stay in step.  The
-session's remaining budget is the group's minimum, and the fair-share
-gate is skipped: plans run one at a time over a group.
+session's remaining budget is the group's minimum.
+
+Plans over a group share one turn (``bridge/ranked.py``): only the plan
+that holds it issues device work and collectives on a rank.  The votes
+are where the turn changes hands, in place of the fair-share gate: rank
+0's row of each vote carries its scheduler's choice (``Scheduler.pick``),
+every rank hands the turn to the plan it names, and the voting plan waits
+until the turn comes back before its next chunk.  A plan whose token
+tripped while it waited is named with its error, and every rank raises
+that error together when it resumes.  A plan that has the group to itself
+(no seat: ``Ranks.turn`` None) votes without a handoff.
 """
 
 from __future__ import annotations
@@ -92,7 +101,8 @@ class RecoveryPolicy:
     def checkpoint(self) -> None:
         """Chunk-boundary cancellation/deadline check — and, with a
         session attached, the fair-share scheduling point (no-op when
-        untokened and unscheduled).  Over ranks: the group's vote."""
+        untokened and unscheduled).  Over ranks: the group's vote, at
+        which the group's turn may pass to another plan and back."""
         if self.ranks is not None:
             self._vote(1)
             return
@@ -112,12 +122,16 @@ class RecoveryPolicy:
         """One host-group reduction of every rank's (active, cancelled,
         expired) flags; raises the typed cancellation on every rank when
         any rank's token tripped, else returns how many ranks are still
-        active."""
+        active.  With a seat at the group's turn the vote also carries
+        rank 0's handoff, and returns once the turn is this plan's
+        again."""
         from ..parallel import ranks as _ranks
         tok = self.group_cancel
-        votes = _ranks.host_gather_ints(
-            [active, tok is not None and tok.cancelled,
-             tok is not None and tok.expired], self.ranks)
+        row = [active, tok is not None and tok.cancelled,
+               tok is not None and tok.expired]
+        seat = self.ranks.turn
+        votes = _ranks.host_gather_ints(row, self.ranks) if seat is None \
+            else seat.vote(row)
         if any(v[1] or v[2] for v in votes):
             if tok is not None:
                 tok.check()  # this rank's own token: its own message
@@ -170,7 +184,19 @@ class RecoveryPolicy:
         ``engine.sched.neighbor_pressure``).  A session over its budget
         — or an unbudgeted/unscheduled query — degrades immediately,
         exactly the old behavior.  One retry per site per query: if the
-        pressure persists, the ladder proceeds."""
+        pressure persists, the ladder proceeds.
+
+        Over ranks only rank 0 holds the session, so every rank in the
+        ladder takes rank 0's answer (one host gather): a fault that
+        every rank sees at the same site steps every rank the same way."""
+        retry = self._retry_first(site, exc)
+        if self.ranks is None:
+            return retry
+        from ..parallel import ranks as _ranks
+        return bool(_ranks.host_gather_ints([retry], self.ranks)[0][0])
+
+    def _retry_first(self, site: str, exc: BaseException) -> bool:
+        """This rank's own answer to ``oom_retry_first``."""
         if self.session is None or not is_resource_exhausted(exc):
             return False
         if self.session.over_budget() or self.session.budget_bytes <= 0:

@@ -31,6 +31,15 @@ Weight follows the SLO class (``weight_for_objective``): a point query with
 a tight objective gets more chunks a round than a bulk scan, so a scan
 cannot starve it.  With one live session the gate is a no-op.
 
+Over a group of ranks (``bridge/ranked.py``) plans do not block at the
+gate: the group has one turn, and rank 0 passes it from plan to plan at
+the points where every rank meets (the chunk-boundary votes and a plan's
+closing report).  There ``pick`` names who holds the turn next, without
+blocking, by the same deficit-round-robin step (``_spend``) as ``gate``:
+the holder keeps the turn while it has credits, a waiting session with
+credits takes it when the holder's are spent, and a round starts once
+every contender's are.
+
 **Per-session memory budgets.**  ``config.session_budget_bytes`` caps a
 session's largest chunk working set (charged at the executor's existing
 ``table_nbytes`` sites: no added device sync).  The spilled-exchange rung
@@ -250,13 +259,25 @@ class Scheduler:
 
     # -- deficit round-robin ----------------------------------------------
 
-    def _new_round(self):
-        """Replenish every live session's credits (lock held)."""
+    def _new_round(self, members):
+        """Replenish ``members``' credits (lock held)."""
         self._rounds += 1
         metrics.count("engine.sched.rounds")
-        for s in self._live.values():
+        for s in members:
             s.credits = _QUANTUM * s.weight
         self._cv.notify_all()
+
+    def _spend(self, session: QuerySession, members) -> bool:
+        """The deficit-round-robin step (lock held): spend one of
+        ``session``'s credits, first starting a round when every one of
+        ``members`` has spent its own; False when ``session`` has none
+        left while another member still has some."""
+        if session.credits <= 0:
+            if any(m.credits > 0 for m in members):
+                return False
+            self._new_round(members)
+        session.credits -= 1
+        return True
 
     def gate(self, session: QuerySession) -> None:
         """Spend one chunk credit; block while the session's round is
@@ -267,21 +288,37 @@ class Scheduler:
             if len(self._live) <= 1:
                 return  # single tenant: no contention, no bookkeeping
             t0 = None
-            while session.credits <= 0:
+            while not self._spend(session, self._live.values()):
                 if session.sid not in self._live:
                     return  # released concurrently (cancel path)
                 now = time.monotonic()
                 if t0 is None:
                     t0 = now
-                if now - t0 >= _FORCE_ROUND_S or \
-                        all(s.credits <= 0 for s in self._live.values()):
-                    self._new_round()
+                if now - t0 >= _FORCE_ROUND_S:
+                    self._new_round(self._live.values())
                 else:
                     self._cv.wait(_GATE_WAIT_S)
-            session.credits -= 1
             if t0 is not None:
                 metrics.observe("engine.sched.gate_wait_s",
                                 time.monotonic() - t0)
+
+    def pick(self, holding: Optional[QuerySession],
+             waiting: list) -> Optional[QuerySession]:
+        """The group's gate: who holds the group's turn next.  ``holding``
+        holds it and runs on (None when its plan has ended); ``waiting``
+        wait for it, the one that waited longest first.  Never blocks:
+        the holder keeps the turn while it has a credit, else the first
+        waiting session with one takes it (``engine.sched.handoffs``),
+        and when every contender's round is spent a new one starts.  The
+        session named spends one credit: the chunk it runs next."""
+        members = ([] if holding is None else [holding]) + list(waiting)
+        if len(members) <= 1:
+            return members[0] if members else None  # no contention
+        with self._cv:
+            nxt = next(s for s in members if self._spend(s, members))
+            if nxt is not holding:
+                metrics.count("engine.sched.handoffs")
+            return nxt
 
     # -- introspection ----------------------------------------------------
 

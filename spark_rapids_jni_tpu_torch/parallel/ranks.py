@@ -22,6 +22,14 @@ together in rank order are the one-process table.
   serving without the group.  ``abort`` ends the group's NCCL work from
   any thread: a kernel that waits on a peer that is gone returns, and
   every later collective raises.
+- Decisions that ride collectives the ranks already make.  Rank 0
+  numbers each decision (``Decisions.issue``); it travels on rank 0's row
+  of a host gather (``host_gather_decided``), or in a record the caller
+  sends, and every rank applies rank 0's decisions in rank 0's order
+  (``Decisions.deliver``), whichever of its threads receives one first.
+  The ranked server passes its group's turn from plan to plan this way
+  (``bridge/ranked.py``); a plan's votes reach its seat through
+  ``Ranks.turn``.
 - ``spawn`` runs a function on ``world`` fresh processes over a
   ``FileStore`` (no TCP port) and returns each rank's result, raising when
   any rank fails or the whole run outlasts its timeout.  ``launch`` starts
@@ -48,6 +56,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -74,6 +83,10 @@ class Ranks:
     device: torch.device
     group: object = field(repr=False)       # moves the rows
     host_group: object = field(repr=False)  # gloo: host-known numbers
+    #: the seat of the plan this copy runs (``bridge/ranked.py``): its
+    #: votes hand the group's turn over; None when the plan has the group
+    #: to itself
+    turn: object = field(default=None, repr=False)
 
 
 def check_nccl_devices(device: torch.device, ids: list) -> None:
@@ -182,6 +195,59 @@ def host_gather_ints(values, ranks: Ranks) -> list:
     out = [torch.empty_like(t) for _ in range(ranks.world)]
     dist.all_gather(out, t, group=ranks.host_group)
     return [o.tolist() for o in out]
+
+
+#: the ints of one decision: its sequence number (0: none), then three of
+#: the caller's
+DECISION_INTS = 4
+
+
+def host_gather_decided(values, decision, ranks: Ranks):
+    """``host_gather_ints`` of ``values`` with rank 0's ``decision``
+    (``DECISION_INTS`` ints, or None for none; other ranks' is ignored)
+    riding on its row.  Returns every rank's values, in rank order, and
+    rank 0's decision."""
+    mine = list(decision) if ranks.rank == 0 and decision else \
+        [0] * DECISION_INTS
+    rows = host_gather_ints(list(values) + mine, ranks)
+    n = len(values)
+    return [r[:n] for r in rows], rows[0][n:]
+
+
+class Decisions:
+    """Rank 0's decisions, applied on every rank in the order rank 0 made
+    them.  Rank 0 numbers each one (``issue``: 1, 2, ...); a rank hands
+    each one it receives to ``deliver``, from whichever thread received
+    it.  A decision that arrives before an earlier one waits until the
+    earlier one is applied, so two channels (a host gather and the control
+    channel, say) cannot reorder them.  ``apply`` runs under this object's
+    lock, one decision at a time."""
+
+    def __init__(self, apply):
+        self._apply = apply
+        self._lock = threading.Lock()
+        self._issued = 0
+        self._next = 1
+        self._early: dict = {}
+
+    def issue(self, *ints) -> list:
+        """Rank 0: the next decision, ``[seq, *ints]``."""
+        with self._lock:
+            self._issued += 1
+            return [self._issued, *ints]
+
+    def deliver(self, decision) -> None:
+        """Apply ``decision`` (a no-op for none, ``seq`` 0) once every
+        earlier one has been applied, and any later ones it held up."""
+        if not decision or decision[0] <= 0:
+            return
+        with self._lock:
+            if decision[0] < self._next:
+                return  # applied already
+            self._early[decision[0]] = list(decision)
+            while self._next in self._early:
+                self._apply(self._early.pop(self._next))
+                self._next += 1
 
 
 def host_max(value: int, ranks: Ranks) -> int:
