@@ -8,16 +8,17 @@ exchange layer on a mesh of 8 shards of the card, adaptive execution
 with the fused partial -> exchange -> combine stage on the same mesh, and
 the device server the JVM talks to (bridge/), reached over its socket,
 nested columns through the rest of I/O (Parquet, ORC, CSV), the mesh
-spread over processes (ranks of torch.distributed), and the device server
-spread over those ranks.
+spread over processes (ranks of torch.distributed), the device server
+spread over those ranks, and the plan-space fuzzer, the chaos soak, the
+trace-join check and the operator CLIs.
 
-    python3 chip_smoke.py [--seed 0] [--rows 16777216]
+    python3 chip_smoke.py [--seed 0] [--phases a,b,...] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
         [--ops-rows ...] [--nds-rows ...] [--orc-rows 4194304]
         [--exchange-rows 16777216] [--exchange-string-rows 4194304]
         [--adaptive-rows 16777216] [--bridge-rows 16777216]
         [--nested-rows 2097152] [--ranks-rows 16777216]
-        [--ranks-string-rows 4194304]
+        [--ranks-string-rows 4194304] [--tools-rows 32768]
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -216,6 +217,21 @@ Phases (any failed check raises, and the script exits non-zero):
             group, and a SIGKILL drill with two plans in flight (on one
             card a line says it was not run).  q5's warm seconds beside
             the bridge and ranks phases'.
+
+19. cards  every card of the host, one NCCL rank a card (on one card a
+            line says it was not run).
+20. tools  the port's checking and operator entry points: the fuzz
+            corpus of seed 20260805 (its first 16 plans and its first
+            device-route plan, case 38, x the 6 variants of
+            fuzz.VARIANTS, the distributed ones on 8 shards) through the
+            engine on the card, no violation, every plan's results bit
+            for bit the port's CPU run, every K3/W1/W2 call captured and
+            held against its plain version, K3 launched on the card; a
+            sabotaged rule caught and shrunk; beside it, as processes of
+            their own, one chaos-soak round (2^15 rows) and the
+            trace-join check on the card; then srjt_blackbox grep,
+            srjt_profile diff and decisions, srjt_export --socket against
+            a server of the port, srjt_fuzz --device cuda --count 2.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -1596,25 +1612,29 @@ def phase_decode(torch, root, fact, seed: int, matrix_rows: int) -> dict:
 # 7. the decode kernels K3, W1, W2 against their plain versions
 # ---------------------------------------------------------------------------
 
-def capture_decode_calls(pqk, pqd, planes, geom) -> dict:
-    """The arguments ``decode_table`` gives each kernel wrapper, captured by
-    wrapping the wrappers for one decode (the main path's real inputs)."""
-    calls = {"plain_gather": [], "snappy_walk": [], "hybrid_decode": []}
+def capture_kernel_calls(pqk, work) -> tuple:
+    """Run ``work()`` with K3, W1 and W2 (``pqk``'s wrappers) wrapped so
+    that every call records its arguments and a copy of its result (the
+    main path's real inputs): ``(work's result, {kernel: [(args, result),
+    ...]})``."""
+    calls = {name: [] for name in DECODE_KERNELS}
     saved = {name: getattr(pqk, name) for name in calls}
 
     def wrap(name):
         def f(*args):
-            calls[name].append(args)
-            return saved[name](*args)
+            got = saved[name](*args)
+            keep = tuple(t.clone() for t in got) if isinstance(got, tuple) \
+                else got.clone()
+            calls[name].append((args, keep))
+            return got
         return f
     for name in calls:
         setattr(pqk, name, wrap(name))
     try:
-        pqd.decode_table(planes, geom)
+        return work(), calls
     finally:
         for name, fn in saved.items():
             setattr(pqk, name, fn)
-    return calls
 
 
 def _plain_ms(torch, fn, reps: int = 1) -> float:
@@ -1744,8 +1764,9 @@ def phase_decode_kernels(torch, root, fact_path, seed: int,
         check(chunk is not None, f"{label}: planned ({reason})")
         planes = chunk.to_device(DEV)
         for g in chunk.geom.columns:
-            calls = capture_decode_calls(pqk, pqd, {g.name: planes[g.name]},
-                                         pqd.ChunkGeom((g,), chunk.geom.rb))
+            _, calls = capture_kernel_calls(pqk, lambda: pqd.decode_table(
+                {g.name: planes[g.name]}, pqd.ChunkGeom((g,), chunk.geom.rb)))
+            calls = {k: [a for a, _ in v] for k, v in calls.items()}
             tag = f"{label}.{g.name}"
             for a in calls["plain_gather"]:
                 if a[3] == 8 or (a[3] == 4 and g.max_def > 0) or \
@@ -5651,6 +5672,326 @@ def phase_cards(torch, root, n: int, n_str: int, seed: int,
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 20. tools: the fuzzer, the soak, the trace-join check and the CLIs
+# ---------------------------------------------------------------------------
+
+TOOLS_SEED = 20260805        # srjt_fuzz --smoke's seed
+TOOLS_PLANS = 16             # the corpus's first plans on the card, and
+TOOLS_DEVICE_CASE = 38       # seed 20260805's first plan whose fact scan
+#                              takes the device route (a pushed
+#                              predicate, fixed-width columns only); no
+#                              plan before it does
+TOOLS_SOAK_ROWS = 1 << 15    # the soak's warehouse (its default 120,000,
+#                              cut to keep the phase near 30 s)
+SHRINK_SEED = 99             # tests/test_fuzz.py's sabotaged corpus
+
+
+def hold_kernel_calls(torch, pqk, calls, launches: dict) -> dict:
+    """Each captured call's result against its plain version on the same
+    inputs, bit for bit: per kernel the calls, the error and the distinct
+    shapes (the first tensor's, then the int arguments).  The calls that
+    launched (a wrapper launches on a non-empty result) must number the
+    kernel's ``launches``: a launch the capture missed went unheld."""
+    out = {}
+    for name, got in calls.items():
+        launched = sum(1 for _, res in got
+                       if (res[0] if isinstance(res, tuple) else res).numel())
+        check(launched == launches[name],
+              f"{name}: {launched} captured calls launched, "
+              f"{launches[name]} launches counted")
+        plain = getattr(pqk, name + "_plain")
+        err, shapes = 0, set()
+        for args, res in got:
+            a = res if isinstance(res, tuple) else (res,)
+            want = plain(*args)
+            b = want if isinstance(want, tuple) else (want,)
+            for x, y in zip(a, b):
+                check(x.shape == y.shape and x.dtype == y.dtype,
+                      f"{name}: result shape/dtype as its plain version")
+                if x.numel():
+                    err = max(err, int((x.to(torch.int64) - y.to(torch.int64)
+                                        ).abs().max()))
+            shapes.add((tuple(args[0].shape),)
+                       + tuple(v for v in args if isinstance(v, int)))
+        out[name] = {"calls": len(got), "max_abs_err": err,
+                     "distinct_shapes": len(shapes),
+                     "shapes": sorted(shapes)[:6]}
+        check(err == 0, f"{name}: every call of the corpus bit-exact "
+                        "against its plain version")
+    return out
+
+
+def _cli(main, argv) -> tuple:
+    """(exit code, stdout) of one in-process CLI call."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = main(argv)
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue()
+
+
+def tools_corpus(fuzz, root: Path, device: str, on_case=None) -> dict:
+    """The phase's fuzz corpus on ``device``: seed 20260805's first
+    ``TOOLS_PLANS`` plans and its case ``TOOLS_DEVICE_CASE``, each through
+    the 6 variants of ``fuzz.VARIANTS``; the two reports' failures and
+    skipped cases together."""
+    reps = [fuzz.run_corpus(TOOLS_SEED, TOOLS_PLANS, root / "first",
+                            variants=fuzz.VARIANTS, device=device,
+                            on_case=on_case),
+            fuzz.run_corpus(TOOLS_SEED, 1, root / "device_case",
+                            variants=fuzz.VARIANTS, device=device,
+                            on_case=on_case, first=TOOLS_DEVICE_CASE)]
+    return {k: reps[0][k] + reps[1][k] for k in ("failures", "skipped")}
+
+
+def _background(cmd: list, log: Path) -> subprocess.Popen:
+    """``cmd`` from the repo's root, its output into ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen(cmd, cwd=str(Path(__file__).resolve()
+                                             .parent),
+                                stdout=f, stderr=subprocess.STDOUT)
+
+
+def phase_tools(torch, root, tracing, soak_rows: int) -> dict:
+    """The port's checking and operator entry points on the card.  The
+    main path, in this process: the fuzz corpus (``tools_corpus``: seed
+    20260805's first 16 plans and its first device-route plan, x the 6
+    variants of ``fuzz.VARIANTS``) through the engine on the card, every
+    K3/W1/W2 call captured and held against its plain version, K3
+    launched on the card.  Then the sabotaged rule caught and shrunk, and
+    the corpus on the CPU, each plan's card results bit for bit its CPU
+    results.  Then ``srjt_export --socket`` against a server of the port
+    (started after the card corpus) and ``srjt_fuzz --device cuda --count
+    2``.  Beside all that, each a ``python -m`` process of its own started
+    first: one soak round at ``soak_rows`` on the card and the trace-join
+    check on the card.  Last ``srjt_blackbox grep`` and ``srjt_profile
+    diff`` and ``decisions`` on what those two wrote.  Each part runs even
+    when one before it failed; the phase then fails naming every failed
+    part."""
+    from concurrent.futures import ThreadPoolExecutor
+    from spark_rapids_jni_tpu_torch import engine as pe
+    from spark_rapids_jni_tpu_torch.bridge import BridgeClient, spawn_server
+    from spark_rapids_jni_tpu_torch.engine import fuzz
+    from spark_rapids_jni_tpu_torch.engine.plan import Filter, topo_nodes
+    from spark_rapids_jni_tpu_torch.kernels import parquet_decode as pqk
+    from spark_rapids_jni_tpu_torch.tools import (srjt_blackbox, srjt_export,
+                                                  srjt_fuzz, srjt_profile)
+    from spark_rapids_jni_tpu_torch.utils import blackbox
+    out = {"phase": "tools", "seed": TOOLS_SEED,
+           "cases": list(range(TOOLS_PLANS)) + [TOOLS_DEVICE_CASE],
+           "variants": [v["name"] for v in fuzz.VARIANTS],
+           "soak_rows": soak_rows, "done_s": {}}
+    failed = []
+
+    def part(name, fn):
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 -- re-raised below, all of them
+            import traceback
+            failed.append(f"{name}: {traceback.format_exc()[-3000:]}")
+            return None
+        finally:
+            out["done_s"][name] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    tools_dir = root / "tools"
+    tools_dir.mkdir()
+    mod = "spark_rapids_jni_tpu_torch.tools."
+    tj_dir, soak_dir = tools_dir / "trace_join", tools_dir / "soak"
+    soak_json = tools_dir / "soak.json"
+    procs = {
+        "trace_join": _background(
+            [sys.executable, "-m", mod + "trace_join_check", "--device",
+             "cuda", "--dir", str(tj_dir)], tools_dir / "trace_join.log"),
+        "soak": _background(
+            [sys.executable, "-m", mod + "chaos_soak", "--device", "cuda",
+             "--rows", str(soak_rows), "--dir", str(soak_dir), "--out",
+             str(soak_json)], tools_dir / "soak.log")}
+    pool = ThreadPoolExecutor(1)
+    export_sock = str(tools_dir / "export.sock")
+    export_srv = None
+
+    def finished(name: str, timeout: float = 300) -> str:
+        """Wait for a background process; its log, checked for exit 0."""
+        rc = procs[name].wait(timeout=timeout)
+        text = (tools_dir / f"{name}.log").read_text()
+        out.setdefault("background", {})[name] = {
+            "rc": rc, "done_s": time.perf_counter() - t_phase}
+        check(rc == 0, f"{name} exits 0: {text[-2000:]}")
+        return text
+
+    card = {}
+
+    def corpus():
+        tracing.reset_counters("kernel.")
+        tracing.reset_counters("kernel_device.")
+        dd0 = tracing.counters_snapshot("io.device_decode")
+        t0 = time.perf_counter()
+        try:
+            rep, calls = capture_kernel_calls(pqk, lambda: tools_corpus(
+                fuzz, tools_dir / "fuzz_card", "cuda",
+                on_case=lambda i, p, r: card.__setitem__(i, r)))
+        finally:
+            torch.cuda.synchronize()
+            out["launches"] = kernel_launches(tracing)
+            out["launch_devices"] = launch_devices(tracing)
+        dd1 = tracing.counters_snapshot("io.device_decode")
+        f = out["fuzz"] = {
+            "seconds": time.perf_counter() - t0,
+            "violations": len(rep["failures"]),
+            "failures": rep["failures"][:3],
+            "skipped": [c["case"] for c in rep["skipped"]],
+            "device_route": {k[len("io.device_decode."):]:
+                             v - dd0.get(k, 0) for k, v in dd1.items()
+                             if "bytes" not in k and v != dd0.get(k, 0)}}
+        check(not rep["failures"], "the corpus on the card: zero "
+              "soundness violations")
+        f["kernel_calls"] = hold_kernel_calls(torch, pqk, calls,
+                                              out["launches"])
+        check(out["launches"]["plain_gather"] > 0,
+              "K3 launched by the corpus")
+        check(set(out["launch_devices"]) == {"cuda:0"},
+              "every launch on the card")
+
+    def cpu_parity():
+        cpu = {}
+        t0 = time.perf_counter()
+        rep = tools_corpus(fuzz, tools_dir / "fuzz_cpu", "cpu",
+                           on_case=lambda i, p, r: cpu.__setitem__(i, r))
+        f = out["fuzz"]
+        f["cpu_seconds"] = time.perf_counter() - t0
+        check(not rep["failures"], "the corpus on the CPU: clean")
+        check(sorted(card) == sorted(cpu) == sorted(
+            set(out["cases"]) - set(f["skipped"])),
+              "the card and the CPU ran the same cases")
+        rows = 0
+        for i in card:
+            for (vn, a), (vc, b) in zip(card[i], cpu[i]):
+                check(vn == vc and fuzz._frames_match(a, b, exact=True)
+                      is None, f"plan {i} {vn}: card == CPU bit for bit")
+                rows += len(a)
+        f["result_rows"] = rows
+
+    def shrinker():
+        def sabotaged(plan, distribute=False):
+            """tests/test_fuzz.py's broken rule: the first Filter's
+            predicate negated after the optimizer (schema-preserving)."""
+            opt = pe.optimize(plan, distribute=distribute)
+            for nd in topo_nodes(opt):
+                if isinstance(nd, Filter):
+                    return fuzz._replace(
+                        opt, nd, Filter(nd.child, ("not", nd.predicate)))
+            return opt
+        t0 = time.perf_counter()
+        rep = fuzz.run_corpus(SHRINK_SEED, 3, tools_dir / "shrink",
+                              variants=fuzz.VARIANTS[:2],
+                              optimize_fn=sabotaged, device="cuda")
+        parity = [f for f in rep["failures"]
+                  if f["check"] == "oracle-parity"]
+        out["shrink"] = {"seconds": time.perf_counter() - t0,
+                         "failures": len(rep["failures"]),
+                         "checks": sorted({f["check"]
+                                           for f in rep["failures"]}),
+                         "nodes": [(f["plan_nodes"], f["minimal_nodes"])
+                                   for f in rep["failures"]]}
+        check(parity, "the sabotaged rule caught as oracle-parity")
+        check(min(f["minimal_nodes"] for f in parity) <= 3,
+              "the sabotaged rule's plan shrunk to at most 3 nodes")
+
+    def soak():
+        finished("soak")
+        rep = json.loads(soak_json.read_text())
+        out["soak"] = {k: rep[k] for k in (
+            "runs", "parity", "bit_exact", "typed", "fired", "unfired",
+            "bundles", "device_decode_chunks", "longest_run_s", "seconds",
+            "wall_s", "launches", "counters", "failures", "device")}
+        check(not rep["failures"] and rep["device"].startswith("cuda"),
+              "the soak on the card: every run parity or one typed error "
+              "with its bundle")
+
+    def trace_join():
+        text = finished("trace_join")
+        check("trace join check: OK" in text, "trace_join_check: OK")
+
+    def export_and_fuzz_cli():
+        got = out.setdefault("clis", {})
+        proc = export_srv.result()
+        try:
+            c = BridgeClient(export_sock, device="cuda")
+            for h in c.execute_plan(pe.Aggregate(
+                    pe.Scan(str(tools_dir / "fuzz_card" / "first" /
+                                "fact.parquet"), chunk_bytes=1 << 12),
+                    ["k1"], [("v", "sum")], names=["s"])):
+                c.release(h)
+            code, text = _cli(srjt_export.main, ["--socket", export_sock])
+            c.shutdown_server()
+            c.close()
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        bad = srjt_export.exposition_faults(text)
+        got["export_socket"] = code
+        got["export_samples"] = sum(1 for ln in text.splitlines()
+                                    if ln.startswith("srjt_"))
+        check(code == 0 and not bad, f"srjt_export --socket: {bad}")
+        t0 = time.perf_counter()
+        code, text = _cli(srjt_fuzz.main, ["--device", "cuda", "--count",
+                                           "2"])
+        got["fuzz_cli"] = code
+        got["fuzz_cli_seconds"] = time.perf_counter() - t0
+        check(code == 0, f"srjt_fuzz --device cuda --count 2: {text}")
+
+    def readers():
+        got = out.setdefault("clis", {})
+        bb = str(soak_dir / "bundles")
+        paths = blackbox.list_bundles(bb)
+        check(paths, f"bundles to grep in {bb}")
+        tid = blackbox.read_bundle(paths[-1])["trace_id"]
+        code, text = _cli(srjt_blackbox.main, ["--dir", bb, "grep", tid])
+        got["blackbox_grep"] = code
+        check(code == 0 and os.path.basename(paths[-1]) in text,
+              "srjt_blackbox grep names the bundle")
+        prof = str(tj_dir / "profiles")
+        for sub in ("diff", "decisions"):
+            code, text = _cli(srjt_profile.main, ["--dir", prof, sub])
+            got[f"profile_{sub}"] = code
+            check(code == 0 and text.strip(), f"srjt_profile {sub} exits 0")
+
+    part("fuzz", corpus)
+    # the export server starts once the other processes are past theirs
+    export_srv = pool.submit(spawn_server, export_sock, device="cuda",
+                             timeout=300)
+    part("shrink", shrinker)
+    part("cpu_parity", cpu_parity)
+    part("export_and_fuzz_cli", export_and_fuzz_cli)
+    part("soak", soak)
+    part("trace_join", trace_join)
+    part("readers", readers)
+    pool.shutdown(wait=True)
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if export_srv.exception() is None and export_srv.result().poll() is None:
+        export_srv.result().kill()
+        export_srv.result().wait()
+    out["seconds"] = time.perf_counter() - t_phase
+    if failed:
+        out["failed"] = failed
+        emit(out)
+        raise AssertionError("tools: " + " | ".join(
+            f.split("\n")[0] + " ... " + f.strip().splitlines()[-1]
+            for f in failed))
+    return out
+
+
 def _build_all(modules) -> dict:
     """nvcc for every CUDA source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5664,13 +6005,13 @@ def _build_all(modules) -> dict:
 #: ``strings`` runs)
 PHASES = ("kernels", "stage", "strings", "decode", "decode_kernels", "q5",
           "engine", "ops", "nds", "orc", "exchange", "adaptive", "bridge",
-          "nested", "ranks", "bridge_ranks", "cards")
+          "nested", "ranks", "bridge_ranks", "cards", "tools")
 #: what a phase reads of another: its results (engine) or its files
 #: (bridge scans the adaptive fact, written without that phase if need be)
 PHASE_NEEDS = {"engine": ("kernels", "q5")}
 #: phases whose ``launches`` make a column of the kernels line, by key
 LAUNCH_COLUMNS = ("engine", "nds", "orc", "exchange", "adaptive", "bridge",
-                  "nested", "ranks", "bridge_ranks", "cards")
+                  "nested", "ranks", "bridge_ranks", "cards", "tools")
 
 
 def pick_phases(text: str | None) -> list:
@@ -5772,6 +6113,7 @@ def main() -> int:
     ap.add_argument("--nested-rows", type=int, default=1 << 21)
     ap.add_argument("--ranks-rows", type=int, default=1 << 24)
     ap.add_argument("--ranks-string-rows", type=int, default=1 << 22)
+    ap.add_argument("--tools-rows", type=int, default=TOOLS_SOAK_ROWS)
     args = ap.parse_args()
     phases = pick_phases(args.phases)
     # 16 row groups, so q5's footer pruning has groups to skip; the
@@ -5894,6 +6236,8 @@ def main() -> int:
             torch, root, args.ranks_rows, args.ranks_string_rows,
             args.seed, res["ranks"]["gloo"][0]["engine_q5"]["warm_s"]
             if "ranks" in res else None))
+        run("tools", lambda: phase_tools(torch, root, tracing,
+                                         args.tools_rows))
 
     print(card_line(), flush=True)
     emit({"kernels": kernel_rows(res)})

@@ -293,8 +293,12 @@ def retry_call(fn: Callable, site: str,
             delay = base * (2.0 ** (attempt - 1)) * (0.75 + 0.5 * j)
             if cancel is not None and cancel.remaining_s() is not None:
                 delay = min(delay, cancel.remaining_s())
+            # the message, not the exception: a handler that keeps its
+            # records (a test's log capture, a memory handler) would pin
+            # the failed attempt's frames, and with them its buffers (a
+            # spill pass's memmapped files)
             logging.getLogger(__name__).warning(
                 "retry %d/%d at %s after %s: %s (backoff %.3fs)",
-                attempt, limit, site, kind, e, delay)
+                attempt, limit, site, kind, str(e), delay)
             if delay > 0:
                 time.sleep(delay)
