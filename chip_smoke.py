@@ -10,7 +10,7 @@ the device server the JVM talks to (bridge/), reached over its socket,
 nested columns through the rest of I/O (Parquet, ORC, CSV), the mesh
 spread over processes (ranks of torch.distributed), the device server
 spread over those ranks, and the plan-space fuzzer, the chaos soak, the
-trace-join check and the operator CLIs.
+trace-join check, the operator CLIs and the repo lint with its sync pass.
 
     python3 chip_smoke.py [--seed 0] [--phases a,b,...] [--rows 16777216]
         [--string-rows 4194304] [--fact-rows 16777216]
@@ -232,6 +232,15 @@ Phases (any failed check raises, and the script exits non-zero):
             trace-join check on the card; then srjt_blackbox grep,
             srjt_profile diff and decisions, srjt_export --socket against
             a server of the port, srjt_fuzz --device cuda --count 2.
+            The lint part: the repo lint (srjt_lint --baseline) as a
+            process of its own, exit 0; its sync pass (--segments --full)
+            on the card in this process, every fused segment body under
+            torch.cuda.set_sync_debug_mode("error"), the runtime syncs
+            equal to verify.sync_budget; engine q5 at full width (the q5
+            files, device route, prefetch 0) the same way, against the
+            host route; a sabotaged segment body caught; every K3/W1 call
+            of the part held against its plain version, its launches in
+            the tools column.
 
 Output: one JSON line per phase (the engine's after its explain text), the
 card's name and power limit as nvidia-smi reports them, a
@@ -5686,6 +5695,7 @@ TOOLS_DEVICE_CASE = 38       # seed 20260805's first plan whose fact scan
 TOOLS_SOAK_ROWS = 1 << 15    # the soak's warehouse (its default 120,000,
 #                              cut to keep the phase near 30 s)
 SHRINK_SEED = 99             # tests/test_fuzz.py's sabotaged corpus
+LINT_BASELINE = "spark_rapids_jni_tpu_torch/tools/lint-baseline.json"
 
 
 def hold_kernel_calls(torch, pqk, calls, launches: dict) -> dict:
@@ -5769,8 +5779,13 @@ def phase_tools(torch, root, tracing, soak_rows: int) -> dict:
     (started after the card corpus) and ``srjt_fuzz --device cuda --count
     2``.  Beside all that, each a ``python -m`` process of its own started
     first: one soak round at ``soak_rows`` on the card and the trace-join
-    check on the card.  Last ``srjt_blackbox grep`` and ``srjt_profile
-    diff`` and ``decisions`` on what those two wrote.  Each part runs even
+    check on the card, and the repo lint (``srjt_lint --baseline``).
+    The ``lint`` part in this process: the lint's sync pass
+    (``--segments --full``) on the card and engine q5 over the q5 files
+    at full width, each with the runtime syncs equal to the budget and no
+    sync in a segment body, and a sabotaged body caught.  Last
+    ``srjt_blackbox grep`` and ``srjt_profile diff`` and ``decisions`` on
+    what the soak and the trace-join check wrote.  Each part runs even
     when one before it failed; the phase then fails naming every failed
     part."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5811,7 +5826,10 @@ def phase_tools(torch, root, tracing, soak_rows: int) -> dict:
         "soak": _background(
             [sys.executable, "-m", mod + "chaos_soak", "--device", "cuda",
              "--rows", str(soak_rows), "--dir", str(soak_dir), "--out",
-             str(soak_json)], tools_dir / "soak.log")}
+             str(soak_json)], tools_dir / "soak.log"),
+        "lint": _background(
+            [sys.executable, "-m", mod + "srjt_lint", "--baseline",
+             LINT_BASELINE], tools_dir / "lint.log")}
     pool = ThreadPoolExecutor(1)
     export_sock = str(tools_dir / "export.sock")
     export_srv = None
@@ -5948,6 +5966,98 @@ def phase_tools(torch, root, tracing, soak_rows: int) -> dict:
         got["fuzz_cli_seconds"] = time.perf_counter() - t0
         check(code == 0, f"srjt_fuzz --device cuda --count 2: {text}")
 
+    def lint():
+        from spark_rapids_jni_tpu_torch import device as _device
+        from spark_rapids_jni_tpu_torch.engine import executor
+        from spark_rapids_jni_tpu_torch.engine.verify import sync_budget
+        from spark_rapids_jni_tpu_torch.tools import srjt_lint
+        from spark_rapids_jni_tpu_torch.utils.config import config
+        got = out["lint"] = {}
+        dev = _device.resolve("cuda")
+        t0 = time.perf_counter()
+        tracing.reset_counters("kernel.")
+        tracing.reset_counters("kernel_device.")
+
+        def sync_pass():
+            rep = {}
+            bad = srjt_lint.segments_pass(full=True, device=dev, report=rep)
+            got["segments"] = {k: rep[k] for k in (
+                "smoke_syncs", "fused", "decode", "kernel_calls")}
+            got["segments"]["plans"] = {
+                k: {"runtime": v["runtime"], "bodies": v["bodies"]}
+                for k, v in rep["plans"].items()}
+            got["segments_s"] = time.perf_counter() - t0
+            # engine q5 at full width on the device route: the runtime
+            # syncs against the budget, every segment body under "error"
+            plan = pe.optimize(q5_engine_plan(root, *Q5_DATES))
+            budget = sync_budget(plan)
+            probe = srjt_lint.SyncProbe(dev)
+            t1 = time.perf_counter()
+            result = srjt_lint.run_counted(plan, dev, probe)
+            got["q5_full_s"] = time.perf_counter() - t1
+            bad += srjt_lint.budget_violations("<q5 full width>", budget,
+                                               probe)
+            got["q5_full"] = {
+                "budget": [(e["site"], e["count"]) for e in budget],
+                "runtime": dict(probe.labels), "bodies": dict(probe.bodies)}
+            return bad, result
+        try:
+            (bad, result), calls = capture_kernel_calls(pqk, sync_pass)
+        finally:
+            torch.cuda.synchronize()
+            got["launches"] = kernel_launches(tracing)
+            got["launch_devices"] = launch_devices(tracing)
+        got["violations"] = bad
+        check(not bad, f"the lint's sync pass on the card: {bad}")
+        config.device_decode = False
+        try:
+            want = pe.execute(pe.optimize(q5_engine_plan(root, *Q5_DATES)),
+                              device=DEV)
+        finally:
+            config.device_decode = None
+        check(result is not None and q5_matches(engine_result(result),
+                                                engine_result(want)),
+              "full-width q5 on the device route under the lint == the "
+              "host route")
+        got["kernel_calls"] = hold_kernel_calls(torch, pqk, calls,
+                                                got["launches"])
+        check(got["launches"]["plain_gather"] > 0
+              and got["launches"]["snappy_walk"] > 0,
+              "K3 and W1 launched by the lint part")
+        check(set(got["launch_devices"]) == {"cuda:0"},
+              "every launch of the lint part on the card")
+        total = out.setdefault("launches", {})
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+        text = finished("lint", timeout=120)
+        got["cli"] = text.strip().splitlines()[-1]
+        check("srjt-lint: 0 new violation(s)" in text,
+              "srjt_lint --baseline: 0 new violations")
+
+        # the guard itself: a segment body made to sync (one .item() in
+        # _eval_expr) must be caught and named
+        saved = executor._eval_expr
+
+        def syncing(expr, table):
+            vals, valid = saved(expr, table)
+            if isinstance(vals, torch.Tensor):
+                vals.sum().item()
+            return vals, valid
+        executor._eval_expr = syncing
+        try:
+            probe = srjt_lint.SyncProbe(dev)
+            srjt_lint.run_counted(
+                pe.optimize(q5_engine_plan(root, *Q5_DATES)), dev, probe)
+        finally:
+            executor._eval_expr = saved
+        got["sabotaged"] = probe.body_syncs[:3]
+        check(probe.body_syncs and any(
+            v["code"] == "segment-host-sync" for v in
+            srjt_lint.budget_violations("<sabotaged>", [], probe)),
+              "a segment body that syncs is caught by the guard")
+        got["seconds"] = time.perf_counter() - t0
+
     def readers():
         got = out.setdefault("clis", {})
         bb = str(soak_dir / "bundles")
@@ -5970,6 +6080,7 @@ def phase_tools(torch, root, tracing, soak_rows: int) -> dict:
                              timeout=300)
     part("shrink", shrinker)
     part("cpu_parity", cpu_parity)
+    part("lint", lint)
     part("export_and_fuzz_cli", export_and_fuzz_cli)
     part("soak", soak)
     part("trace_join", trace_join)

@@ -63,8 +63,10 @@ def spawn_server(sock_path: str, device=_device.DEFAULT,
                 "--devices", ",".join(str(d) for d in devices or ())]
     for k, v in (settings or {}).items():
         cmd += ["--set", f"{k}={v}"]
+    # env=None inherits this process's environment; added variables need
+    # the whole mapping (the lint's one baseline key, README)
     proc = subprocess.Popen(cmd, cwd=str(_PKG_PARENT),
-                            env={**os.environ, **(env or {})})
+                            env={**os.environ, **env} if env else None)
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if proc.poll() is not None:

@@ -617,8 +617,14 @@ class BridgeServer:
             for name, m in leftover:
                 try:
                     m.close()
-                finally:
-                    shmlib.unlink(name)
+                except (BufferError, OSError) as e:
+                    # a straggler still maps it; best effort, but counted,
+                    # and unlinked all the same (the mapping outlives its
+                    # name)
+                    from ..utils import metrics
+                    metrics.count("bridge.straggler_remaps")
+                    _log.debug("straggler remap of %s: %s", name, e)
+                shmlib.unlink(name)
 
     def _serve_client(self, conn: socket.socket) -> None:
         _device.bind(self.device)

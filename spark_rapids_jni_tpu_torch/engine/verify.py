@@ -27,8 +27,9 @@ Scan schemas come from the port's ``ParquetFile`` and ``ORCFile`` footers.
 
 The JAX package's jaxpr lints (``lint_segment``, ``lint_decode_segment``,
 ``lint_fused_stage``, ``lint_plan_artifacts``, ``lint_segment_cache``) have
-no torch counterpart: ``chip_smoke.py`` counts the card's synchronising
-calls instead, under ``torch.cuda.set_sync_debug_mode("warn")``.
+no torch counterpart: the repo lint's ``--segments`` pass
+(``tools/srjt_lint.py``) runs the fused segment bodies on a card under
+``torch.cuda.set_sync_debug_mode("error")`` instead.
 """
 
 from __future__ import annotations
@@ -813,6 +814,14 @@ SYNC_WHITELIST = (
     "groupby-compaction",           # _compact_padded's ngroups fetch
     "exchange-counts-sizing",       # hash exchange phase-1 counts fetch
     "exchange-compaction",          # hash exchange live-count fetch
+)
+
+#: the deliberate host syncs a ranked run pays beyond ``SYNC_WHITELIST``:
+#: ``sync_budget`` leaves them out of its static model (a gather's sizing
+#: fetch depends on the ranks' row counts, not on the plan alone), so they
+#: stay out of the whitelist the budget and the fuzzer check
+RANKS_SYNCS = (
+    "ranks-gather-sizing",          # mesh.gather_table's STRING sizing fetch
 )
 
 

@@ -1572,10 +1572,14 @@ def _prefetched(gen, depth: int, cancel, device):
     and transfers then belong to the reader's card, not to card 0."""
     import queue
     import threading
+    import time
+
+    from ..utils import metrics
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
     DONE, FAIL = object(), object()
+    timed = metrics.enabled()
     # cross-thread flow arrows on the event timeline: the producer's
     # staging of chunk n links to the consumer's dispatch of chunk n by
     # id.  Both sides count the same in-order sequence, so fid_base + n
@@ -1584,6 +1588,7 @@ def _prefetched(gen, depth: int, cancel, device):
     fid_base = timeline.new_flow_base() if tl else 0
 
     def put(item) -> bool:  # False once the consumer abandoned us
+        t0 = time.perf_counter() if timed else 0.0
         while not stop.is_set():
             if cancel is not None and cancel.should_stop():
                 return False  # stuck query: release the reader thread
@@ -1591,6 +1596,12 @@ def _prefetched(gen, depth: int, cancel, device):
                 q.put(item, timeout=0.1)
             except queue.Full:
                 continue
+            if timed:
+                # time blocked on a full queue: the producer ran ahead of
+                # the consumer (healthy; the idle time below is the stall
+                # that costs wall time)
+                metrics.time_add("io.parquet.prefetch.producer_stall_s",
+                                 time.perf_counter() - t0)
             return True
         return False
 
@@ -1606,7 +1617,6 @@ def _prefetched(gen, depth: int, cancel, device):
 
     # the producer re-enters the consumer's query, so its metrics, timeline
     # events and flight-recorder records carry that query (and its trace)
-    from ..utils import metrics
     qm = metrics.current()
 
     def producer():
@@ -1645,7 +1655,13 @@ def _prefetched(gen, depth: int, cancel, device):
     k = 0
     try:
         while True:
+            t0 = time.perf_counter() if timed else 0.0
             item = q.get()
+            if timed:
+                # the consumer blocked waiting on host decode: the bubble
+                # the double-buffered pipeline exists to hide
+                metrics.time_add("io.parquet.prefetch.consumer_idle_s",
+                                 time.perf_counter() - t0)
             if item is DONE:
                 break
             if isinstance(item, tuple) and len(item) == 2 \

@@ -37,8 +37,10 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
+    # torch's own lookup: CUDA_HOME / CUDA_PATH, then nvcc's directory,
+    # then /usr/local/cuda
+    from torch.utils.cpp_extension import CUDA_HOME
+    path = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "nvcc"
     if not path.exists():
         raise RuntimeError("nvcc not found: the port's kernels need the CUDA "
                            "toolkit to build")

@@ -11,7 +11,10 @@
 - ``trace_join_check``: one trace id across the client, the server's
   metrics, profiles and bundles;
 - ``chaos_soak``: the fault-injection matrix against the pipeline and the
-  server.
+  server;
+- ``srjt_lint``: the repo lint of the port's invariants (AST rules,
+  dispatch tables, the metric catalog ``METRICS.md`` beside it) and, with
+  ``--segments``, the sync pass on a device.
 
 Settings come from flags (``--dir``, ``--slo-ms``, ``--set field=value``),
 never from the environment.  The entry points that execute plans take
