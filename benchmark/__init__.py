@@ -1,0 +1,6 @@
+"""The benchmark of spark_rapids_jni_tpu_torch on one NVIDIA H100.
+
+``python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once and prints one
+JSON line.  See ``core/harness.py``.
+"""
