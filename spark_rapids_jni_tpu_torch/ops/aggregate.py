@@ -19,7 +19,10 @@ Null semantics match Spark and the JAX package: null keys form one group;
 null values are left out of sum/min/max/mean/var/count(col); count_all
 counts rows; first/last take the group's first/last row in input order
 (ignoreNulls=False).  ``groupby_padded`` returns n-row outputs and the
-group count as a tensor (no host sync); ``groupby`` compacts to the groups.
+group count as a tensor (no host sync); ``groupby`` compacts to the groups,
+reading the group count and each key's null check on the host
+(``ops.host_sync.groupby.*``).  The profiler ranges ``groupby.sort``,
+``groupby.reduce`` and ``groupby.compact`` split the op into its phases.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .. import device as _device
 from ..columnar import Column, Table
 from ..dtypes import TypeId, INT64, FLOAT64, int64_values
 from ..utils.floatbits import SIGN64
-from ..utils.tracing import traced
+from ..utils.tracing import span, sync_point, traced
 from .order import (SortKey, _fixed_to_u64, decode_minmax_bits, encode_keys,
                     lexsort, rows_differ_from_prev)
 from .strings_common import from_padded_bytes, to_padded_bytes
@@ -217,19 +220,21 @@ def groupby_padded(table: Table, key_names: list, aggs: list[tuple],
             (None if op == "count_all" else table.column(col_ref))
         resolved.append((col, op))
 
-    gid, ngroups = _groups(key_cols, row_mask, n, dev)
-    idx = torch.arange(n, device=dev)
-    first = _scatter_ext(gid, idx, n, n, "amin").clamp(0, max(n - 1, 0))
-    out_keys = []
-    for c in key_cols:
-        valid = c.valid_mask()[first]
-        if c.dtype.is_string:
-            mat, lengths = to_padded_bytes(c)
-            out_keys.append(("string", mat[first], lengths[first], valid))
-        else:
-            out_keys.append(("fixed", c.dtype, c.data[first], valid))
-    out_aggs = [_agg_column(col, op, gid, n, row_mask)
-                for col, op in resolved]
+    with span("groupby.sort"):
+        gid, ngroups = _groups(key_cols, row_mask, n, dev)
+    with span("groupby.reduce"):
+        idx = torch.arange(n, device=dev)
+        first = _scatter_ext(gid, idx, n, n, "amin").clamp(0, max(n - 1, 0))
+        out_keys = []
+        for c in key_cols:
+            valid = c.valid_mask()[first]
+            if c.dtype.is_string:
+                mat, lengths = to_padded_bytes(c)
+                out_keys.append(("string", mat[first], lengths[first], valid))
+            else:
+                out_keys.append(("fixed", c.dtype, c.data[first], valid))
+        out_aggs = [_agg_column(col, op, gid, n, row_mask)
+                    for col, op in resolved]
     return out_keys, out_aggs, ngroups
 
 
@@ -279,23 +284,25 @@ def _groupby_with_collect(table: Table, key_names: list, aggs: list,
     table = table.to(device)
     base = _base_groupby(table, key_names, aggs, ("collect_list",), device)
     order, bounds, _ = _key_segments(table, key_names)
-    order = order.cpu().numpy()
+    with sync_point("groupby.collect_host"):
+        order = order.cpu().numpy()
+        starts = np.flatnonzero(bounds.cpu().numpy())
     n = len(order)
-    starts = np.flatnonzero(bounds.cpu().numpy())
     ends = np.append(starts[1:], n)
 
     def collect(ref) -> Column:
         col = ref if isinstance(ref, Column) else table.column(ref)
         col = col.to(device)
-        valid = col.validity_numpy()[order]
+        with sync_point("groupby.collect_host"):
+            valid = col.validity_numpy()[order]
+            vals = col.to_pylist() if col.dtype.is_string else \
+                col.data.cpu().numpy()[order]
         if col.dtype.is_string:
-            vals = col.to_pylist()
             groups = [[vals[r] for r in order[a:b] if vals[r] is not None]
                       for a, b in zip(starts, ends)]
             child = Column.from_pylist([v for g in groups for v in g],
                                        dtype=col.dtype, device=device)
         else:
-            vals = col.data.cpu().numpy()[order]
             groups = [vals[a:b][valid[a:b]] for a, b in zip(starts, ends)]
             flat = np.concatenate(groups) if groups else \
                 np.zeros((0,) + vals.shape[1:], vals.dtype)
@@ -357,21 +364,24 @@ def groupby(table: Table, key_names: list, aggs: list[tuple],
                                      _device.resolve(device))
     out_keys, out_aggs, ngroups = groupby_padded(table, key_names, aggs,
                                                  device=device)
-    ng = int(ngroups)
-    cols = []
-    for spec in out_keys:
-        valid = spec[3][:ng]
-        has_null = not bool(valid.all())
-        if spec[0] == "string":
-            cols.append(from_padded_bytes(spec[1][:ng], spec[2][:ng],
-                                          valid if has_null else None))
-        else:
-            cols.append(Column(spec[1], data=spec[2][:ng],
-                               validity=valid if has_null else None))
-    for c in out_aggs:
-        cols.append(Column(c.dtype, data=c.data[:ng],
-                           validity=None if c.validity is None
-                           else c.validity[:ng]))
+    with span("groupby.compact"):
+        with sync_point("groupby.ngroups"):
+            ng = int(ngroups)
+        cols = []
+        for spec in out_keys:
+            valid = spec[3][:ng]
+            with sync_point("groupby.key_nulls"):
+                has_null = not bool(valid.all())
+            if spec[0] == "string":
+                cols.append(from_padded_bytes(spec[1][:ng], spec[2][:ng],
+                                              valid if has_null else None))
+            else:
+                cols.append(Column(spec[1], data=spec[2][:ng],
+                                   validity=valid if has_null else None))
+        for c in out_aggs:
+            cols.append(Column(c.dtype, data=c.data[:ng],
+                               validity=None if c.validity is None
+                               else c.validity[:ng]))
     key_names_out = [k if isinstance(k, str) else f"key{i}"
                      for i, k in enumerate(key_names)]
     agg_names = names or [f"{op}_{ref if isinstance(ref, str) else i}"

@@ -17,6 +17,9 @@ Fixed width runs in three steps:
 3. ``convert_from_rows`` runs the inverse: K2
    (``kernels.row_wire.deinterleave_wire``), then ``_from_planes``.
 
+The profiler ranges ``row_conversion.check``, ``.planes``, ``.wire`` and
+``.columns`` mark these steps, apart from one another.
+
 STRING columns make variable-width rows under the contract written above
 ``VarRowLayout``; that path writes each row's bytes at its offset with
 plain tensor scatters and uses no kernel.
@@ -34,7 +37,7 @@ from .. import device as _device
 from ..columnar import Column, PackedByteColumn, Table
 from ..dtypes import DType, TypeId, INT8, UINT8
 from ..kernels import row_wire
-from ..utils.tracing import traced
+from ..utils.tracing import span, sync_point, traced
 from .strings_common import ragged_copy
 
 # per-batch byte ceiling from cudf's int32 list offsets (reference
@@ -102,6 +105,7 @@ def _col_to_u32_parts(dtype: DType, data: torch.Tensor
     return [(1, data.view(torch.uint8).to(torch.int32))]
 
 
+@traced("row_conversion.planes")
 def _build_planes(layout: RowLayout, datas: Sequence[Optional[torch.Tensor]],
                   masks: Sequence[Optional[torch.Tensor]], n: int,
                   device: torch.device, extra_parts=None,
@@ -176,6 +180,7 @@ def _masks(layout: RowLayout, planes: torch.Tensor) -> list[torch.Tensor]:
     return out
 
 
+@traced("row_conversion.columns")
 def _from_planes(layout: RowLayout, planes: torch.Tensor):
     """Word planes ``int32[nwords, n]`` -> (datas, masks)."""
     datas = [_column_data(dt, off, planes)
@@ -198,10 +203,12 @@ def _to_rows_wire(layout: RowLayout, datas, masks,
     if padded == 0:
         return torch.zeros(0, dtype=torch.int32, device=device)
     mat = _build_planes(layout, datas, masks, n, device, padded=padded)
-    wire = row_wire.interleave_planes(mat)
-    return wire if padded == n else wire[:n * nwords]
+    with span("row_conversion.wire"):
+        wire = row_wire.interleave_planes(mat)
+        return wire if padded == n else wire[:n * nwords]
 
 
+@traced("row_conversion.wire")
 def _from_wire(layout: RowLayout, wire: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of ``_to_rows_wire``: wire -> planes ``int32[nwords, n]``."""
     nwords = layout.row_size // 4
@@ -330,7 +337,10 @@ def _convert_to_rows_var(table: Table, max_batch_bytes: int,
         slens.append(ln)
         row_sizes = row_sizes + (ln + 7) // 8 * 8
     row_ends = torch.cumsum(row_sizes, 0)
-    total = int(row_ends[-1]) if n else 0
+    total = 0
+    if n:
+        with sync_point("row_conversion.var_sizes.total"):
+            total = int(row_ends[-1])
 
     def emit(start, stop, base_off, nbytes):
         return _to_rows_var_batch(vlayout, table, slens, row_sizes, row_ends,
@@ -340,8 +350,9 @@ def _convert_to_rows_var(table: Table, max_batch_bytes: int,
         return [emit(0, n, 0, total)]
 
     # several batches: row boundary planning needs the sizes on the host
-    ends_np = row_ends.cpu().numpy()
-    sizes_np = row_sizes.cpu().numpy()
+    with sync_point("row_conversion.var_sizes.batches"):
+        ends_np = row_ends.cpu().numpy()
+        sizes_np = row_sizes.cpu().numpy()
     if int(sizes_np.max()) > max_batch_bytes:
         raise ValueError(
             f"a single row packs to {int(sizes_np.max())} bytes, above "
@@ -378,11 +389,15 @@ def _convert_from_rows_var(rows: Column, schema: Sequence[DType]) -> Table:
     dev = rows.offsets.device
     offs = rows.offsets.to(torch.int64)
     n = offs.shape[0] - 1
-    sizes = offs[1:] - offs[:-1]
-    if n and bool(((sizes < base.row_size) | (sizes % 8 != 0)).any()):
-        raise ValueError(
-            f"variable-width row blobs must be 8-byte aligned and at least "
-            f"the fixed region ({base.row_size} B)")
+    with span("row_conversion.check"):
+        sizes = offs[1:] - offs[:-1]
+        if n:
+            with sync_point("row_conversion.var_sizes.check"):
+                bad = bool(((sizes < base.row_size) | (sizes % 8 != 0)).any())
+            if bad:
+                raise ValueError(
+                    f"variable-width row blobs must be 8-byte aligned and at "
+                    f"least the fixed region ({base.row_size} B)")
     wire = child.data if child.data.dtype == torch.int32 else \
         child.data.contiguous().view(torch.int32)
     base_words = base.row_size // 4
@@ -402,7 +417,9 @@ def _convert_from_rows_var(rows: Column, schema: Sequence[DType]) -> Table:
         flen = planes[off // 4 + 1].to(torch.int64)
         str_offs = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         torch.cumsum(flen, 0, out=str_offs[1:])
-        chars = torch.empty(int(str_offs[-1]), dtype=torch.uint8, device=dev)
+        with sync_point("row_conversion.var_sizes.chars"):
+            nchars = int(str_offs[-1])
+        chars = torch.empty(nchars, dtype=torch.uint8, device=dev)
         ragged_copy(chars, str_offs[:-1], wire_u8, offs[:-1] + foff, flen)
         cols.append(Column.string(chars, str_offs.to(torch.int32),
                                   validity=masks[ci], device=dev))
@@ -463,7 +480,8 @@ def convert_from_rows(rows: Column, schema: Sequence[DType],
 
     Analog of ``RowConversion.convertFromRows``; ``schema`` plays the role
     of the (type-id, scale) pairs the Java layer marshals.  The row width
-    check costs one scalar host sync.
+    check costs one scalar host sync, counted on
+    ``ops.host_sync.row_conversion.row_width``.
     """
     if rows.dtype.id != TypeId.LIST or not rows.children:
         raise TypeError("expected a LIST<INT8> row-blob column")
@@ -477,11 +495,16 @@ def convert_from_rows(rows: Column, schema: Sequence[DType],
         return _convert_from_rows_var(rows, schema)
     layout = fixed_width_layout(schema)
     n = rows.offsets.shape[0] - 1
-    widths = rows.offsets[1:] - rows.offsets[:-1]
-    if n and not bool((widths == layout.row_size).all()):
-        raise ValueError(
-            f"row width mismatch: blobs have {set(widths.unique().tolist())} "
-            f"bytes/row, schema packs to {layout.row_size}")
+    with span("row_conversion.check"):
+        widths = rows.offsets[1:] - rows.offsets[:-1]
+        if n:
+            with sync_point("row_conversion.row_width"):
+                ok = bool((widths == layout.row_size).all())
+            if not ok:
+                raise ValueError(
+                    f"row width mismatch: blobs have "
+                    f"{set(widths.unique().tolist())} bytes/row, schema "
+                    f"packs to {layout.row_size}")
     if child.data.dtype == torch.int32:  # packed-word blob (convert_to_rows)
         datas, masks = _from_planes(layout, _from_wire(layout, child.data, n))
     else:

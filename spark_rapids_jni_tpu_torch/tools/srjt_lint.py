@@ -27,7 +27,8 @@ The port of ``tools/srjt_lint.py``, over ``spark_rapids_jni_tpu_torch/``
   the ``utils/errors`` taxonomy.
 - **unregistered-metric** / **stale-metric** — every literal metric name
   recorded through ``metrics.count/observe/gauge_set/gauge_max/time_add``
-  / ``tracing.count`` (and every literal ``node_set`` label) appears in the
+  / ``tracing.count`` (and every literal ``node_set`` label, and every
+  literal ``sync_point`` site as ``ops.host_sync.<site>``) appears in the
   generated catalog ``tools/METRICS.md``, and every catalog row has a call
   site.  f-strings catalog with ``<var>`` placeholders; a conditional
   expression with literal branches catalogs both.
@@ -354,6 +355,13 @@ class _FileLint(ast.NodeVisitor):
 
     def _collect_metric(self, node: ast.Call) -> None:
         fn = node.func
+        callee = fn.attr if isinstance(fn, ast.Attribute) else \
+            fn.id if isinstance(fn, ast.Name) else None
+        if callee == "sync_point" and node.args:
+            for site in _literal_metric_names(node.args[0]):
+                self.metric_sites.append((f"ops.host_sync.{site}", "counter",
+                                          self.relpath, node.lineno))
+            return
         if not isinstance(fn, ast.Attribute):
             return
         if fn.attr in _METRIC_FNS and isinstance(fn.value, ast.Name) \
@@ -435,13 +443,23 @@ def render_metrics_doc(catalog: dict) -> str:
         "--write-metrics` from the literal names at `metrics.count` /",
         "`observe` / `gauge_set` / `gauge_max` / `time_add` /",
         "`tracing.count` / `node_set` call sites of",
-        "`spark_rapids_jni_tpu_torch/`; `<var>` marks an f-string",
-        "interpolation (one row per template, however many concrete names",
-        "it expands to), and a conditional expression catalogs both of its",
-        "literal branches.  Do not edit by hand: a call site recording a",
-        "name missing here fails the lint (`unregistered-metric`), and a",
-        "row with no remaining call site fails it too (`stale-metric`) —",
-        "every metric rename is one reviewable catalog diff.",
+        "`spark_rapids_jni_tpu_torch/`, and from the sites of",
+        "`tracing.sync_point` as `ops.host_sync.<site>`; `<var>` marks an",
+        "f-string interpolation (one row per template, however many",
+        "concrete names it expands to), and a conditional expression",
+        "catalogs both of its literal branches.  Do not edit by hand: a",
+        "call site recording a name missing here fails the lint",
+        "(`unregistered-metric`), and a row with no remaining call site",
+        "fails it too (`stale-metric`) — every metric rename is one",
+        "reviewable catalog diff.",
+        "",
+        "`ops.host_sync.<site>` counts the device-to-host reads an op makes",
+        "on its own (`utils/tracing.py::sync_point`): one each time a call",
+        "passes the site, which also opens the profiler range",
+        "`sync.<site>`.  They are apart from `engine.host_sync`, the",
+        "engine's budgeted syncs.  Like every flat counter they are in the",
+        "device server's `OP_METRICS` snapshot (`counters`) and in",
+        "`srjt_export`'s Prometheus text.",
         "",
         "| name | kind | call sites |",
         "|---|---|---|",

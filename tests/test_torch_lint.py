@@ -187,6 +187,17 @@ def test_conditional_metric_names_catalog_both_branches():
         ("a.<kind>", "counter", 2)]
 
 
+def test_sync_points_catalog_as_op_host_syncs():
+    src = ('with sync_point("a.b"):\n    pass\n'
+           'with tracing.sync_point(f"c.{k}"):\n    pass\n'
+           'with sync_point(site):\n    pass\n')
+    fl = L._FileLint(f"{L.PKG}/{_SEG}", P_WHITELIST)
+    fl.visit(ast.parse(src))
+    assert [(n, k, ln) for n, k, _, ln in fl.metric_sites] == [
+        ("ops.host_sync.a.b", "counter", 1),
+        ("ops.host_sync.c.<k>", "counter", 3)]
+
+
 # -- the tree, the baseline and the CLI ---------------------------------------
 
 def test_port_tree_is_clean_against_its_baseline(capsys):
@@ -241,6 +252,15 @@ PORT_ONLY = {
     "engine.segment.<kind>": "the template of JAX's compile and replay",
     "kernel_device.<fn_name>.<device>": "each CUDA launch by card "
                                         "(kernels/nvcc.py)",
+    **{f"ops.host_sync.{site}": "a device-to-host read inside an op "
+                                "(utils/tracing.py::sync_point)"
+       for site in ("row_conversion.row_width",
+                    "row_conversion.var_sizes.total",
+                    "row_conversion.var_sizes.batches",
+                    "row_conversion.var_sizes.check",
+                    "row_conversion.var_sizes.chars",
+                    "groupby.ngroups", "groupby.key_nulls",
+                    "groupby.collect_host")},
 }
 
 
